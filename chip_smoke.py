@@ -13,21 +13,36 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    banks, with engine-like and hostile positions (atol 2e-6 / 3e-6,
    out-of-range lanes exactly 0);
 4. slice       — the north-star session (1024 voices, 64 looped clips at
-   48 kHz, 120 BPM; the port of bench.py's build_session) through
-   AudioEngine on "cuda" (fetch resolves to the windows kernel) and on
-   "cpu" (the plain gather path): 8 superblocks (B=1024), then 16 live
-   blocks (B=128), every block compared (voice_peaks atol 2e-6; lane_mix
-   and master rtol 1e-5, atol 2e-6 x voices in the densest lane); the
-   kernel's launch count must equal the dispatched blocks, and no block
-   may fall back to gather;
-5. timing      — superblock realtime factor, live-block ms, host program
-   build and dispatch ms, a torch.profiler pass per geometry (device ms and
-   kernels per block, device busy share), kernel and plain fetch ms (p50
-   over CUDA events: device time, and call time with the host's launch
-   latency).
+   48 kHz, 120 BPM; the port of bench.py's build_session) through the
+   per-block engine (lookahead=0, voice buckets and ratio ladder off) on
+   "cuda" (fetch resolves to the windows kernel) and on "cpu" (the plain
+   gather path): 8 superblocks (B=1024), then 16 live blocks (B=128),
+   every block compared (voice_peaks atol 2e-6; lane_mix and master rtol
+   1e-5, atol 2e-6 x voices in the densest lane); the kernel's launch count
+   must equal the dispatched blocks, and no block may fall back to gather;
+5. timing      — per-block engine: superblock realtime factor, live-block
+   ms, host program and dispatch ms, a torch.profiler pass per geometry
+   (device ms and kernels per block, device busy share); default engine:
+   realtime factor and ms/block at both geometries, SLO misses per kind,
+   DSP load, the horizon-build / adoption-wait / emit spans, and a paced
+   live run (one block per period); kernel and plain fetch ms, and the
+   kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA events: device time,
+   and call time with the host's launch latency);
+6. default engine — the session through the engine's default options
+   (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
+   "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
+   least two adoptions of the chain, and two preemptions (a note-off, then
+   a set_strip, mid-horizon) rebuilt in their event block; every block is
+   compared with a "cpu" engine at lookahead=0 (the rule of phase 4) and
+   with a "cuda" engine at lookahead=0 with the same buckets (max
+   difference printed); the kernel's launches must equal the horizon
+   slices and per-block blocks rendered with the windows fetch, no gather
+   fallback, no failed speculative build.
 
-The line before the last holds the kernel record as JSON; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The line before the last holds the kernel record as JSON (its launches are
+those of phases 4 and 6, each counted from 0 around its engine run); the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -47,6 +62,9 @@ SUPER_BLOCK = 1024
 LIVE_BLOCK = 128
 SLICE_SUPER_BLOCKS = 8
 SLICE_LIVE_BLOCKS = 16
+# phases 4 and 5 drive the per-block engine (their figures stay comparable
+# with the per-block records in PERF.md); phase 6 the default options
+PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
 BANK_FRAMES = 1 << 22      # SoundBank's default capacity
 
 FETCH_ATOL = 2e-6          # tests/test_fetch_windows.py:54
@@ -103,6 +121,19 @@ def build_session(engine, num_voices: int = NUM_VOICES,
     return clips
 
 
+def note_off(engine, voice: int) -> None:
+    """Schedule a stop of `voice`'s note (its clip, channel and note: the
+    reference's stop-matching identity)."""
+    from libzl_tpu.engine.commands import ClipCommand
+
+    pool = engine.pool
+    cmd = ClipCommand.channel(int(pool.clip_id[voice]),
+                              int(pool.midi_channel[voice]))
+    cmd.midi_note = int(pool.midi_note[voice])
+    cmd.stop_playback = True
+    engine.schedule_clip_command(cmd, 0)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,15 +177,16 @@ def phase_build() -> None:
 
 
 def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
-                  device):
-    """Random bank, windows and window-relative positions. Engine-like
-    draws keep each voice's positions inside its regions; hostile draws
-    add negative, past-the-end and region-edge positions (p = region-1
-    reads region B's first sample at tap p+1; 2*region-2 is the last valid
+                  device, r_max: float = 4.0):
+    """Random bank, windows and window-relative positions for regions of
+    region_rows(B, r_max). Engine-like draws keep each voice's positions
+    inside its regions at pitch ratios up to r_max; hostile draws add
+    negative, past-the-end and region-edge positions (p = region-1 reads
+    region B's first sample at tap p+1; 2*region-2 is the last valid
     position, 2*region-1 the first invalid one)."""
     from libzl_tpu_torch.ops.fetch_windows import region_rows
 
-    region = region_rows(B)
+    region = region_rows(B, r_max)
     sound = (rng.standard_normal((2, n)) * 0.3).astype(np.float32)
     if dtype == torch.int16:
         sound = np.clip(np.round(sound * np.float32(32767.0)),
@@ -162,10 +194,11 @@ def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
     max_blk = (n - region) // 512
     win_a = rng.integers(0, max_blk, V).astype(np.int32)
     win_b = rng.integers(0, max_blk, V).astype(np.int32)
-    span = int(4.0 * B) + 2
+    span = int(r_max * B) + 2
     base_a = rng.integers(0, region - span, V)[:, None]
     base_b = region + rng.integers(0, region - span, V)[:, None]
-    step = rng.integers(0, 5, (V, 1))  # ratio 0..4 samples per frame
+    # whole-sample ratios 0..r_max per frame
+    step = rng.integers(0, int(r_max) + 1, (V, 1))
     frames = np.arange(B)[None, :]
     seg = rng.integers(0, 2, (V, B))
     pos = np.where(seg == 0, base_a + frames * step, base_b + frames * step)
@@ -221,6 +254,27 @@ def _densest_lane(engine) -> int:
         if act.any() else 0
 
 
+def _check_block(og, oc, mix_atol: float, label: str, worst: dict) -> None:
+    """One block of a card engine against a "cpu" engine: voice_peaks atol
+    2e-6; lane_mix and master rtol 1e-5, atol `mix_atol`; finite, same
+    shapes, audible master. Folds the max errors into `worst`."""
+    for name, atol, rtol in (("voice_peaks", PEAK_ATOL, 0.0),
+                             ("lane_mix", mix_atol, MIX_RTOL),
+                             ("master", mix_atol, MIX_RTOL)):
+        a = getattr(og, name).cpu().numpy()
+        b = getattr(oc, name).numpy()
+        check(a.shape == b.shape and np.isfinite(a).all(),
+              f"{label}: {name} shape/finite")
+        err = np.abs(a - b)
+        worst[name] = max(worst.get(name, 0.0), float(err.max()))
+        bad = err > atol + rtol * np.abs(b)
+        check(not bad.any(),
+              f"{label}: {name} max err {err.max():.3e} "
+              f"(atol {atol:.1e}, rtol {rtol:g})")
+    check(float(np.abs(og.master.cpu().numpy()).max()) > 0,
+          f"{label}: silent master")
+
+
 def _compare_blocks(gpu, cpu, n_blocks: int, label: str) -> dict:
     worst = {"master": 0.0, "lane_mix": 0.0, "voice_peaks": 0.0}
     for i in range(n_blocks):
@@ -228,21 +282,7 @@ def _compare_blocks(gpu, cpu, n_blocks: int, label: str) -> dict:
         og = gpu.process_block().outputs
         oc = cpu.process_block().outputs
         mix_atol = MIX_ATOL_PER_VOICE * max(before, _densest_lane(gpu), 1)
-        for name, atol, rtol in (("voice_peaks", PEAK_ATOL, 0.0),
-                                 ("lane_mix", mix_atol, MIX_RTOL),
-                                 ("master", mix_atol, MIX_RTOL)):
-            a = getattr(og, name).cpu().numpy()
-            b = getattr(oc, name).numpy()
-            check(a.shape == b.shape and np.isfinite(a).all(),
-                  f"{label} block {i} {name}: shape/finite")
-            err = np.abs(a - b)
-            worst[name] = max(worst[name], float(err.max()))
-            bad = err > atol + rtol * np.abs(b)
-            check(not bad.any(),
-                  f"{label} block {i} {name}: max err {err.max():.3e} "
-                  f"(atol {atol:.1e}, rtol {rtol:g})")
-        check(float(np.abs(og.master.cpu().numpy()).max()) > 0,
-              f"{label} block {i}: silent master")
+        _check_block(og, oc, mix_atol, f"{label} block {i}", worst)
     return worst
 
 
@@ -254,9 +294,9 @@ def phase_slice(device) -> int:
     for B, n in ((SUPER_BLOCK, SLICE_SUPER_BLOCKS),
                  (LIVE_BLOCK, SLICE_LIVE_BLOCKS)):
         gpu = AudioEngine(device, sample_rate=SAMPLE_RATE, block_frames=B,
-                          num_voices=NUM_VOICES)
+                          num_voices=NUM_VOICES, **PER_BLOCK)
         cpu = AudioEngine("cpu", sample_rate=SAMPLE_RATE, block_frames=B,
-                          num_voices=NUM_VOICES)
+                          num_voices=NUM_VOICES, **PER_BLOCK)
         check(gpu.fetch == "windows" and cpu.fetch == "gather",
               f"fetch resolved to {gpu.fetch}/{cpu.fetch}")
         build_session(gpu)
@@ -287,6 +327,121 @@ def phase_slice(device) -> int:
     check(launches == windows,
           f"kernel launched {launches} times for {windows} blocks")
     return launches
+
+
+# (B, blocks, note-off block, set_strip block): the first horizon starts
+# after 3 clean blocks, the chain is adopted at every exhaustion, and both
+# events land mid-horizon at least 3 blocks after the last one, so each
+# preempts the horizon and rebuilds it in its event block
+DEFAULT_RUNS = ((SUPER_BLOCK, 18, 10, 15), (LIVE_BLOCK, 66, 40, 48))
+
+
+def default_engines(device, B: int):
+    """(default engine on `device`, per-block engine with the same buckets
+    and ladder on `device`, per-block engine on "cpu"), each with the
+    session built; the device engines warmed up."""
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    def make(dev, **opts):
+        e = AudioEngine(dev, sample_rate=SAMPLE_RATE, block_frames=B,
+                        num_voices=NUM_VOICES, **opts)
+        build_session(e)
+        return e
+
+    hz = make(device)
+    pb = make(device, lookahead=0)
+    cpu = make("cpu", lookahead=0)
+    hz.warmup()
+    pb.warmup()
+    return hz, pb, cpu
+
+
+def drive_default(hz, pb, cpu, n: int, off_at: int, strip_at: int) -> dict:
+    """Drive the three engines `n` blocks with a note-off at `off_at` and a
+    set_strip at `strip_at`; hold `hz` to `cpu` every block (phase 4's
+    rule) and measure its difference from `pb`. Ends with the speculation
+    drained, so every render the engines started has been enqueued."""
+    worst, worst_pb = {}, 0.0
+    preempted = rebuilt = 0
+    for i in range(n):
+        if i == off_at:
+            for e in (hz, pb, cpu):
+                note_off(e, 5)
+        if i == strip_at:
+            for e in (hz, pb, cpu):
+                e.set_strip(2, dry=0.7, pan=-0.3)
+        mid = hz._h_cursor < len(hz._h_slices)
+        before = _densest_lane(cpu)
+        oh = hz.process_block().outputs
+        op = pb.process_block().outputs
+        oc = cpu.process_block().outputs
+        if mid and hz._blocks_since_event == 0:
+            preempted += 1
+            rebuilt += int(hz._h_built_this_block)
+        mix_atol = MIX_ATOL_PER_VOICE * max(before, _densest_lane(cpu), 1)
+        _check_block(oh, oc, mix_atol, f"B={hz.block_frames} block {i}",
+                     worst)
+        for a, b in zip(oh, op):
+            worst_pb = max(worst_pb, float((a - b).abs().max()))
+    hz.drain_speculation()
+    kinds = hz.stats()["slo_by_kind"]
+    return dict(worst=worst, worst_pb=worst_pb, preempted=preempted,
+                rebuilt=rebuilt,
+                horizons=kinds.get("horizon", [0, 0])[1],
+                adoptions=kinds.get("adopt", [0, 0])[1],
+                rebuilds=kinds.get("event_rebuild", [0, 0])[1])
+
+
+def phase_default_engine(device) -> int:
+    from libzl_tpu_torch.ops import fetch_windows as fw
+
+    runs = []
+    for B, n, off_at, strip_at in DEFAULT_RUNS:
+        hz, pb, cpu = default_engines(device, B)
+        check(hz._lookahead == min(16, 2048 // B) and hz.fetch == "windows"
+              and hz._ratio_ladder == [2.0, 4.0]
+              and hz._bucket_ladder == [64, 128, 256, 512, 1024],
+              f"default options resolved to lookahead {hz._lookahead}, "
+              f"fetch {hz.fetch}, rungs {hz._ratio_ladder}, buckets "
+              f"{hz._bucket_ladder}")
+        runs.append((B, n, off_at, strip_at, hz, pb, cpu))
+    torch.cuda.synchronize()
+    total = 0
+    for B, n, off_at, strip_at, hz, pb, cpu in runs:
+        for e in (hz, pb):
+            e.fetch_dispatches = {"windows": 0, "gather": 0}
+        t0 = time.perf_counter()
+        fw.fetch_interp.launches = 0
+        r = drive_default(hz, pb, cpu, n, off_at, strip_at)
+        torch.cuda.synchronize()
+        launches = fw.fetch_interp.launches
+        windows = hz.fetch_dispatches["windows"] + pb.fetch_dispatches[
+            "windows"]
+        gather = hz.fetch_dispatches["gather"] + pb.fetch_dispatches["gather"]
+        stats = hz.stats()
+        print(f"default B={B} H={hz._lookahead}: {n} blocks, horizons "
+              f"{r['horizons']}, adoptions {r['adoptions']}, event rebuilds "
+              f"{r['rebuilds']}, preemptions {r['preempted']} (rebuilt "
+              f"{r['rebuilt']}); vs cpu max err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r["worst"].items())
+              + f"; vs cuda lookahead=0 max |diff| {r['worst_pb']:.3e}"
+              f"{' (bit-equal)' if r['worst_pb'] == 0.0 else ''}; kernel "
+              f"launches {launches}, rendered blocks windows {windows} "
+              f"(horizon engine {hz.fetch_dispatches['windows']}) gather "
+              f"{gather}; spec failures {stats['spec_failures']} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check(stats["spec_failures"] == 0,
+              f"speculative build failed: {stats['spec_last_failure']}")
+        check(r["horizons"] >= 1 and r["adoptions"] >= 2,
+              f"B={B}: {r['horizons']} horizons, {r['adoptions']} adoptions")
+        check(r["preempted"] >= 2 and r["rebuilt"] >= 2,
+              f"B={B}: {r['preempted']} preemptions, {r['rebuilt']} rebuilt")
+        check(gather == 0, "a block fell back to the gather fetch")
+        check(launches == windows,
+              f"kernel launched {launches} times for {windows} rendered "
+              f"blocks")
+        total += launches
+    return total
 
 
 def _events_ms(fn, iters: int, primed: bool) -> list:
@@ -349,7 +504,7 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
           f"device per block, {prof['kernels']:.1f} kernels per block, fetch "
           f"kernel {100 * prof['fetch_share']:.2f}% of device time; device "
           f"busy {100 * prof['device_ms'] / block_ms:.1f}% of the "
-          f"unprofiled process_block p50 ({block_ms:.4f} ms)")
+          f"unprofiled process_block time ({block_ms:.4f} ms)")
 
 
 def phase_timing(device, card: str) -> dict:
@@ -359,7 +514,8 @@ def phase_timing(device, card: str) -> dict:
     res = {}
     # superblock realtime factor: blocks chained, one sync at the end
     eng = AudioEngine(device, sample_rate=SAMPLE_RATE,
-                      block_frames=SUPER_BLOCK, num_voices=NUM_VOICES)
+                      block_frames=SUPER_BLOCK, num_voices=NUM_VOICES,
+                      **PER_BLOCK)
     build_session(eng)
     eng.warmup()
     for _ in range(10):
@@ -387,7 +543,8 @@ def phase_timing(device, card: str) -> dict:
 
     # live blocks: chained (no per-block sync), one sync at the end
     live = AudioEngine(device, sample_rate=SAMPLE_RATE,
-                       block_frames=LIVE_BLOCK, num_voices=NUM_VOICES)
+                       block_frames=LIVE_BLOCK, num_voices=NUM_VOICES,
+                       **PER_BLOCK)
     build_session(live)
     live.warmup()
     for _ in range(20):
@@ -426,6 +583,8 @@ def phase_timing(device, card: str) -> dict:
     res.update({f"super_profile_{k}": v for k, v in super_profile.items()})
     res.update({f"live_profile_{k}": v for k, v in live_profile.items()})
 
+    _default_timing(device, card, res)
+
     # fetch kernel vs plain version at the main path's shapes, in turns
     rng = np.random.default_rng(99)
     for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
@@ -451,8 +610,131 @@ def phase_timing(device, card: str) -> dict:
                   f"plain {p:.4f} ms (p50 of 50 CUDA-event timings each, in "
                   f"turns; ~{mbytes:.1f} MB -> kernel "
                   f"{mbytes / 1e3 / (k / 1e3):.1f} GB/s)")
+
+    # the ratio ladder's rungs: the kernel at region_rows(B, 2.0) against
+    # region_rows(B, 4.0) on the SAME taps (pitch ratios <= 2; region B's
+    # positions re-based from one region size to the other), in turns
+    for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
+        args2 = kernel_inputs(np.random.default_rng(7), V, B, BANK_FRAMES,
+                              torch.float32, False, device, r_max=2.0)
+        r2, r4 = fw.region_rows(B, 2.0), fw.region_rows(B, 4.0)
+        pos = args2[1]
+        args4 = (args2[0], torch.where(pos >= r2, pos - r2 + r4, pos)
+                 .contiguous(), *args2[2:])
+        check(torch.equal(fw.fetch_interp(*args2, r_max=2.0),
+                          fw.fetch_interp(*args4, r_max=4.0)),
+              "the rungs read different taps")
+        fns = {2.0: lambda: fw.fetch_interp(*args2, r_max=2.0),
+               4.0: lambda: fw.fetch_interp(*args4, r_max=4.0)}
+        for f in fns.values():
+            for _ in range(5):
+                f()
+        samples = {2.0: [], 4.0: []}
+        for r in (2.0, 4.0, 4.0, 2.0):
+            samples[r] += _events_ms(fns[r], 25, True)
+        for r in (2.0, 4.0):
+            res[f"kernel_ms_{V}x{B}_rmax{r:g}"] = float(
+                np.median(samples[r]))
+        print(f"[{card}] fetch kernel V={V} B={B} device time by ratio rung: "
+              f"rmax 2.0 {res[f'kernel_ms_{V}x{B}_rmax2']:.4f} ms, rmax 4.0 "
+              f"{res[f'kernel_ms_{V}x{B}_rmax4']:.4f} ms (same taps, "
+              f"bit-equal outputs; p50 of 50 each, in turns)")
     torch.cuda.synchronize()
     return res
+
+
+def _spans(engine) -> dict:
+    prof = engine.profiler.summary()
+    return {name: {k: prof[name][k] for k in ("p50_ms", "max_ms", "count")}
+            for name in ("process_block", "horizon_build", "adopt_wait",
+                         "emit") if name in prof}
+
+
+def _default_timing(device, card: str, res: dict) -> None:
+    """The default engine (horizon, chain, buckets, ladder) at both
+    geometries: realtime factor and ms/block over chained blocks (one sync
+    at the end), SLO misses per kind, DSP load, the lookahead spans, a
+    device profile; at B=128 also a paced run, one block per period."""
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    def engine(B):
+        e = AudioEngine(device, sample_rate=SAMPLE_RATE, block_frames=B,
+                        num_voices=NUM_VOICES)
+        build_session(e)
+        e.warmup()
+        for _ in range(3 + 4 * e._lookahead):   # past the first adoptions
+            e.process_block()
+        torch.cuda.synchronize()
+        return e
+
+    for B, n, rounds_n in ((SUPER_BLOCK, 40, 3), (LIVE_BLOCK, 320, 1)):
+        e = engine(B)
+        tag = f"default_{B}"
+        rts, per_block = [], []
+        for _ in range(rounds_n):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                t1 = time.perf_counter()
+                out = e.process_block()
+                per_block.append((time.perf_counter() - t1) * 1e3)
+            out.outputs.master.cpu()
+            rts.append(n * B / SAMPLE_RATE / (time.perf_counter() - t0))
+        stats = e.stats()
+        res[f"{tag}_rt"] = float(np.median(rts))
+        res[f"{tag}_rt_rounds"] = rts
+        res[f"{tag}_ms_p50"] = float(np.median(per_block))
+        res[f"{tag}_ms_mean"] = float(np.mean(per_block))
+        res[f"{tag}_slo_by_kind"] = stats["slo_by_kind"]
+        res[f"{tag}_dsp_load"] = stats["dsp_load"]
+        res[f"{tag}_spans"] = _spans(e)
+        res[f"{tag}_spec_failures"] = stats["spec_failures"]
+        prof = _device_profile(e, 4 * e._lookahead)
+        res.update({f"{tag}_profile_{k}": v for k, v in prof.items()})
+        print(f"[{card}] default engine B={B} H={e._lookahead}: realtime "
+              f"factor {res[f'{tag}_rt']:.3f}x (rounds "
+              f"{', '.join(f'{r:.3f}' for r in rts)}), process_block ms p50 "
+              f"{res[f'{tag}_ms_p50']:.4f} mean {res[f'{tag}_ms_mean']:.4f} "
+              f"(chained, {rounds_n}x{n} blocks); dsp_load "
+              f"{stats['dsp_load']}; spec failures {stats['spec_failures']}")
+        print(f"[{card}] default engine B={B} slo_by_kind (missed, total, "
+              f"worst overrun ms): {json.dumps(stats['slo_by_kind'])}")
+        print(f"[{card}] default engine B={B} spans: "
+              f"{json.dumps(res[f'{tag}_spans'])}")
+        # emits make the p50 tiny: the busy share is over the mean
+        _print_profile(card, f"default engine B={B}", prof,
+                       res[f"{tag}_ms_mean"])
+        check(stats["spec_failures"] == 0,
+              f"speculative build failed: {stats['spec_last_failure']}")
+        e.drain_speculation()
+
+    # paced live run: one block per 2.667 ms period, as a realtime pump
+    # would call it; the lag says whether the engine keeps up
+    from libzl_tpu.utils.profiling import SloCounter
+
+    e = engine(LIVE_BLOCK)
+    period = LIVE_BLOCK / SAMPLE_RATE
+    e.slo = SloCounter(budget_seconds=period)   # count this run only
+    n = 384
+    t0 = time.perf_counter()
+    for i in range(n):
+        wait = t0 + i * period - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        out = e.process_block()
+    out.outputs.master.cpu()
+    lag = (time.perf_counter() - t0 - n * period) * 1e3
+    stats = e.stats()
+    res["paced_128_slo_by_kind"] = stats["slo_by_kind"]
+    res["paced_128_lag_ms"] = lag
+    res["paced_128_spans"] = _spans(e)
+    emits = stats["slo_by_kind"].get("emit", [0, 0, 0.0])
+    print(f"[{card}] default engine B=128 paced ({n} blocks, one per "
+          f"{period * 1e3:.3f} ms): lag behind the schedule at the end "
+          f"{lag:.1f} ms; emit blocks within 2.667 ms "
+          f"{emits[1] - emits[0]} of {emits[1]}; slo_by_kind "
+          f"{json.dumps(stats['slo_by_kind'])}; spans "
+          f"{json.dumps(res['paced_128_spans'])}")
+    e.drain_speculation()
 
 
 def main() -> int:
@@ -467,6 +749,7 @@ def main() -> int:
     err = phase_kernel(device)
     launches = phase_slice(device)
     timing = phase_timing(device, card)
+    launches += phase_default_engine(device)
     print(f"timing: {json.dumps(timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

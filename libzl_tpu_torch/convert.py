@@ -41,16 +41,22 @@ def sound_bank_tensor(data: np.ndarray, device, bank_dtype: str = "float32",
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
 
 
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array -> a device tensor. On CUDA the upload goes through
+    pinned memory without blocking the host; on the CPU it is a copy, so
+    the caller may reuse the array."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
 def program_tensor(prog_i: np.ndarray, prog_f: np.ndarray,
                    device) -> torch.Tensor:
     """The packed program pair -> ONE int32 [V, Ki+Kf] device tensor (f32
-    columns bit-cast, ops/voice.fuse_packed). On CUDA the upload goes
-    through pinned memory without blocking the host."""
-    fused = torch.from_numpy(fuse_packed(prog_i, prog_f))
-    device = torch.device(device)
-    if device.type == "cuda":
-        return fused.pin_memory().to(device, non_blocking=True)
-    return fused.to(device)
+    columns bit-cast, ops/voice.fuse_packed), uploaded like `upload`."""
+    return upload(fuse_packed(prog_i, prog_f), device)
 
 
 def strips_tensor(strips, device) -> torch.Tensor:

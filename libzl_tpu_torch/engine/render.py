@@ -1,5 +1,4 @@
-"""The per-block render graph on tensors (counterpart of
-libzl_tpu/engine/render.py).
+"""The render graph on tensors (counterpart of libzl_tpu/engine/render.py).
 
     sound_data [2,N] / [N,2] ─┐
     fused program [V, K] i32 ─┼─> render_voices ─> lane mix [12,B,2] ─> Σ master
@@ -8,9 +7,12 @@ libzl_tpu/engine/render.py).
                                                     global strip on master
                                                     peaks, RMS
 
-PyTorch runs eagerly, so there is nothing to jit: `render_block_fused` is the
-engine's per-block entry point, one program upload per block. The lookahead
-horizon entry points (`render_horizon_*`) are not ported yet (ROADMAP).
+PyTorch runs eagerly, so there is nothing to jit. `render_block_fused` is the
+engine's per-block entry point (one program upload per block) and
+`render_horizon_onebuf` its lookahead-horizon entry point (one upload of the
+base program and the compact dynamics per H blocks). A horizon is H calls of
+the same per-block math, one per slice's program, so each slice is
+bit-identical to a per-block render of that program.
 """
 
 from __future__ import annotations
@@ -69,6 +71,23 @@ def finish_block(lane_mix, strips, voice_peaks) -> RenderOutputs:
     )
 
 
+def pad_voice_peaks(outs, pad_voices_to: int, v_in: int):
+    """Zero-pad voice_peaks [v_in] -> [pad_voices_to] (bucketed prefix
+    dispatch renders a prefix of the pool). One RenderOutputs or a tuple of
+    them."""
+    pad = pad_voices_to - v_in
+    if pad <= 0:
+        return outs
+
+    def one(o):
+        return o._replace(
+            voice_peaks=torch.nn.functional.pad(o.voice_peaks, (0, pad)))
+
+    if isinstance(outs, RenderOutputs):  # a NamedTuple: check before tuple
+        return one(outs)
+    return tuple(one(o) for o in outs)
+
+
 def render_block_math(
     sound_data,
     prog: voice_ops.VoiceProgram,
@@ -107,8 +126,99 @@ def render_block_fused(
         sound_data, prog, strips, block_frames, quirk_gain=quirk_gain,
         fetch=fetch, max_pitch_ratio=max_pitch_ratio,
     )
-    pad = pad_voices_to - prog_fused.shape[0]
-    if pad > 0:
-        out = out._replace(
-            voice_peaks=torch.nn.functional.pad(out.voice_peaks, (0, pad)))
-    return out
+    return pad_voice_peaks(out, pad_voices_to, prog_fused.shape[0])
+
+
+def render_horizon_math(
+    sound_data,
+    progs,                      # sequence of `slices` VoicePrograms
+    strips: mixer_ops.StripParams,
+    block_frames: int,
+    quirk_gain: bool = False,
+    fetch: str = "gather",
+    max_pitch_ratio: float = 4.0,
+) -> tuple:
+    """A lookahead horizon of consecutive blocks, one per program: the same
+    render_block_math on each slice's own program, in slice order."""
+    return tuple(
+        render_block_math(
+            sound_data, prog, strips, block_frames, quirk_gain=quirk_gain,
+            fetch=fetch, max_pitch_ratio=max_pitch_ratio,
+        )
+        for prog in progs
+    )
+
+
+def render_horizon_fused(
+    sound_data,
+    prog_stack,
+    strips_packed,
+    block_frames: int,
+    slices: int,
+    quirk_gain: bool = False,
+    fetch: str = "gather",
+    max_pitch_ratio: float = 4.0,
+    pad_voices_to: int = 0,
+) -> tuple:
+    """Stacked-program horizon: `prog_stack` is `slices` fused per-block
+    programs concatenated on axis 1, [V, slices*K]. Not the engine's path;
+    the explicit-program oracle the compact forms are held against."""
+    K = prog_stack.shape[1] // slices
+    strips = voice_ops.unpack_strips(strips_packed)
+    progs = [
+        voice_ops.unpack_program(
+            *voice_ops.split_fused(prog_stack[:, h * K:(h + 1) * K]))
+        for h in range(slices)
+    ]
+    outs = render_horizon_math(
+        sound_data, progs, strips, block_frames, quirk_gain=quirk_gain,
+        fetch=fetch, max_pitch_ratio=max_pitch_ratio,
+    )
+    return pad_voice_peaks(outs, pad_voices_to, prog_stack.shape[0])
+
+
+def render_horizon_compact(
+    sound_data,
+    base_fused,
+    dyn,
+    strips_packed,
+    block_frames: int,
+    slices: int,
+    quirk_gain: bool = False,
+    fetch: str = "gather",
+    max_pitch_ratio: float = 4.0,
+    pad_voices_to: int = 0,
+) -> tuple:
+    """A horizon from the base program [V, K] and the compact dynamics
+    [V, 1+(H-1)*D] (ops/voice.pack_horizon_dynamics), bit-identical to
+    render_horizon_fused on the full stacked programs."""
+    progs = voice_ops.horizon_programs(base_fused, dyn, slices, block_frames)
+    strips = voice_ops.unpack_strips(strips_packed)
+    outs = render_horizon_math(
+        sound_data, progs, strips, block_frames, quirk_gain=quirk_gain,
+        fetch=fetch, max_pitch_ratio=max_pitch_ratio,
+    )
+    return pad_voice_peaks(outs, pad_voices_to, base_fused.shape[0])
+
+
+def render_horizon_onebuf(
+    sound_data,
+    hz_fused,
+    strips_packed,
+    block_frames: int,
+    slices: int,
+    base_cols: int,
+    quirk_gain: bool = False,
+    fetch: str = "gather",
+    max_pitch_ratio: float = 4.0,
+    pad_voices_to: int = 0,
+) -> tuple:
+    """The engine's horizon dispatch: render_horizon_compact with the base
+    program and the dynamics concatenated into one int32 tensor
+    [V, base_cols + 1+(H-1)*D], so a horizon is one upload."""
+    return render_horizon_compact(
+        sound_data, hz_fused[:, :base_cols], hz_fused[:, base_cols:],
+        strips_packed, block_frames, slices, quirk_gain=quirk_gain,
+        fetch=fetch, max_pitch_ratio=max_pitch_ratio,
+        pad_voices_to=pad_voices_to,
+    )

@@ -16,6 +16,8 @@ Two implementations of one contract (see csrc/fetch_interp.cu):
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from libzl_tpu.constants import MAX_PITCH_RATIO, WINDOW_ANCHOR_BLOCK
@@ -140,9 +142,9 @@ def fetch_interp(sound_data, pos_local, alpha, win_blk_a, win_blk_b,
     """Windows fetch: [V, 2, B] f32 linear-interpolated, pre-gain samples.
 
     CPU tensors take `fetch_interp_plain`. CUDA tensors launch the kernel
-    (csrc/fetch_interp.cu) on the current stream, or raise: a CUDA tensor
-    never reaches the plain version. `fetch_interp.launches` counts kernel
-    launches."""
+    (csrc/fetch_interp.cu) on the calling thread's current stream, or
+    raise: a CUDA tensor never reaches the plain version.
+    `fetch_interp.launches` counts kernel launches from every thread."""
     if sound_data.device.type == "cpu":
         return fetch_interp_plain(sound_data, pos_local, alpha, win_blk_a,
                                   win_blk_b, r_max=r_max)
@@ -167,8 +169,16 @@ def fetch_interp(sound_data, pos_local, alpha, win_blk_a, win_blk_b,
                   win_blk_a.data_ptr(), win_blk_b.data_ptr(), out.data_ptr(),
                   V, B, region_rows(B, r_max), stream)
     _build.check(lib, code, "fetch_interp launch")
-    fetch_interp.launches += 1
+    _count_launch()
     return out
 
 
 fetch_interp.launches = 0
+# the engine thread and the speculative horizon's dispatch thread both
+# launch the kernel: the read-modify-write of the count takes a lock
+_launches_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    with _launches_lock:
+        fetch_interp.launches += 1

@@ -8,21 +8,35 @@ the reference's; see its module docstring for the semantics. The packed
 program layout, `VoiceProgram`, `pack_program`, `fuse_packed` and
 `pack_strips` are host-side numpy code and stay in the reference;
 `unpack_program` and `unpack_strips` only slice columns, so the reference's
-own functions unpack tensors as they are (re-exported here).
+own functions unpack tensors as they are (re-exported here). So does the
+host half of the compact lookahead horizon (`pack_horizon_dynamics`,
+`horizon_dyn_cols`); its device half, `unpack_horizon_slice` and
+`horizon_programs`, is below.
 """
 
 from __future__ import annotations
 
 import torch
 
-from libzl_tpu.constants import MAX_SEGMENTS_PER_BLOCK, NUM_SAMPLER_CHANNELS
-from libzl_tpu.ops.voice import (  # noqa: F401  (unpack_*: re-exported)
+from libzl_tpu.constants import (
+    MAX_SEGMENTS_PER_BLOCK,
+    NUM_SAMPLER_CHANNELS,
+    WINDOW_ANCHOR_BLOCK,
+)
+from libzl_tpu.ops.voice import (  # noqa: F401  (re-exported host halves)
     _F32_ENV,
     _F32_SCALARS,
+    _RF16,
+    RELEASE_NONE,
     VoiceProgram,
+    horizon_dyn_cols,
+    pack_horizon_dynamics,
     unpack_program,
     unpack_strips,
 )
+
+# torch.where takes a Python scalar, not a numpy one
+_RELEASE_NONE = int(RELEASE_NONE)
 
 from . import adsr as adsr_ops
 from .fetch_windows import (
@@ -43,6 +57,84 @@ def split_fused(fused):
     ki = fused.shape[1] - (len(_F32_SCALARS) + len(_F32_ENV)
                            + MAX_SEGMENTS_PER_BLOCK)
     return fused[:, :ki], fused[:, ki:].view(torch.float32)
+
+
+def _pairs16(col):
+    """One int32 column of two 16-bit fields -> (lo, hi); `>>` on int32 is
+    the arithmetic shift, as in the reference."""
+    return col & 0xFFFF, (col >> 16) & 0xFFFF
+
+
+def unpack_horizon_slice(base: VoiceProgram, dyn, h: int,
+                         block_frames: int) -> VoiceProgram:
+    """Slice h (h >= 1) of a compact lookahead horizon: the reference's
+    unpack_horizon_slice (libzl_tpu/ops/voice.py) on tensors. Dynamic
+    columns are the host's own values round-tripped through
+    pack_horizon_dynamics; the window anchor repeats the host's integer
+    floor division on non-negative int32. Rows that die mid-horizon keep
+    base statics with active=0 and render as silence."""
+    S = base.seg_start.shape[1]
+    W = base.bq_reset.shape[1]
+    npack = (S + 1) // 2
+    D = horizon_dyn_cols(W)
+    off = 1 + (h - 1) * D
+    istart = dyn[:, 0]
+    pos_int = dyn[:, off]
+    # the f32 columns are bit-casts of the int32 ones
+    pos_frac, env0, rel_rate = (
+        dyn[:, off + i].view(torch.float32) for i in (1, 2, 3))
+    f16 = []
+    for c in range(npack):
+        f16.extend(_pairs16(dyn[:, off + 4 + c]))
+    wraps, stop = f16[: S - 1], f16[S - 1]
+    flags = dyn[:, off + 4 + npack]
+    rf = flags & _RF16
+    rf = torch.where(rf == _RF16, _RELEASE_NONE, rf)
+    zero_i = torch.zeros_like(pos_int)
+    seg_start = torch.stack([zero_i] + wraps, dim=1)
+    seg_pos_int = torch.stack(
+        [pos_int] + [torch.where(w < block_frames, istart, 0) for w in wraps],
+        dim=1,
+    )
+    zf = torch.zeros_like(pos_frac)
+    seg_pos_frac = torch.stack([pos_frac] + [zf] * (S - 1), dim=1)
+    win_a = torch.clamp_min(
+        torch.floor_divide(base.base + pos_int, WINDOW_ANCHOR_BLOCK), 0)
+    if W:
+        g = []
+        for c in range((W + 1) // 2):
+            g.extend(_pairs16(dyn[:, off + 5 + npack + c]))
+        bq = torch.stack(g[:W], dim=1)
+    else:
+        bq = base.bq_reset
+    return base._replace(
+        active=(flags >> 16) & 1,
+        win_blk_a=win_a,
+        seg_start=seg_start,
+        seg_pos_int=seg_pos_int,
+        seg_pos_frac=seg_pos_frac,
+        start_frame=zero_i,
+        stop_frame=stop,
+        bq_reset=bq,
+        env=base.env._replace(
+            stage0=(flags >> 17) & 7,
+            release_frame=rf,
+            rel_mode=(flags >> 20) & 3,
+            env0=env0,
+            rel_rate=rel_rate,
+        ),
+    )
+
+
+def horizon_programs(base_fused, dyn, slices: int,
+                     block_frames: int) -> list:
+    """All H per-block VoicePrograms of a compact horizon: slice 0 from the
+    fused base program, slices 1..H-1 rebuilt from the dynamics."""
+    base = unpack_program(*split_fused(base_fused))
+    return [base] + [
+        unpack_horizon_slice(base, dyn, h, block_frames)
+        for h in range(1, slices)
+    ]
 
 
 def positions_block(prog: VoiceProgram, block_frames: int):

@@ -31,6 +31,10 @@ from libzl_tpu_torch.engine.engine import AudioEngine
 SR = 48000
 V = 32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the per-block path: these tests count one dispatch per rendered block; the
+# default engine (lookahead horizon, buckets, ratio ladder) has its own tests
+# (tests/test_torch_lookahead.py, tests/test_torch_buckets.py)
+PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
 
 # (B, blocks, {block: event}) — events land at the same musical places
 SCRIPTS = {
@@ -129,7 +133,7 @@ def test_engine_matches_reference_numpy_and_jax(B, host_core):
     """host_core "auto" takes the native host core (built with g++);
     "numpy" the reference's numpy program builder and advance."""
     port = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
-                       host_core=host_core)
+                       host_core=host_core, **PER_BLOCK)
     assert port.fetch == "gather"
     assert port.use_native_host == (host_core == "auto")
     got, got_levels = run_script(port, B, session=True)
@@ -157,9 +161,10 @@ def test_engine_matches_reference_numpy_and_jax(B, host_core):
 def test_windows_fetch_engine_on_cpu(B):
     """fetch="windows" on the CPU renders through the plain windows fetch
     (planar bank, region tail guard) and agrees with the gather engine."""
-    gather = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V)
+    gather = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
+                         **PER_BLOCK)
     windows = AudioEngine("cpu", sample_rate=SR, block_frames=B,
-                          num_voices=V, fetch="windows")
+                          num_voices=V, fetch="windows", **PER_BLOCK)
     got, _ = run_script(windows, B)
     want, _ = run_script(gather, B)
     for b, (g, w) in enumerate(zip(got, want)):
@@ -177,7 +182,7 @@ def test_over_envelope_pitch_dispatches_gather():
     gather fetch, like the reference's ratio rule."""
     B = 128
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
-                      fetch="windows", max_pitch_ratio=2.0)
+                      fetch="windows", max_pitch_ratio=2.0, **PER_BLOCK)
     ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
                     backend="numpy", max_pitch_ratio=2.0)
     outs = []
@@ -247,13 +252,47 @@ def test_cuda_device_without_a_card_raises():
         AudioEngine("cuda", num_voices=8)
 
 
-@pytest.mark.parametrize("kw", [
-    {"lookahead": 16}, {"lookahead": "auto"}, {"voice_buckets": "auto"},
-    {"ratio_ladder": "auto"}, {"mesh": object()},
-])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_are_rejected(kw):
     with pytest.raises(ValueError, match="ROADMAP"):
         AudioEngine("cpu", num_voices=8, **kw)
+
+
+@pytest.mark.parametrize("B,V,kw", [
+    (128, 1024, {}), (1024, 1024, {}), (4096, 16, {}),
+    (128, 16, {"lookahead": 16}), (128, 16, {"lookahead": 1}),
+    (128, 128, {"voice_buckets": "auto"}), (128, 128, {"voice_buckets": "off"}),
+    (128, 64, {}), (128, 16, {"fetch": "windows"}),
+    (128, 16, {"fetch": "windows", "ratio_ladder": "off"}),
+    (128, 16, {"fetch": "windows", "max_pitch_ratio": 2.0}),
+])
+def test_options_resolve_as_the_reference(B, V, kw):
+    """lookahead, voice_buckets and ratio_ladder (defaults "auto") resolve
+    to what the reference's jax engine resolves them to; the gather fetch
+    (the CPU's auto) has a single rung, like the reference's."""
+    port = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
+                       **kw)
+    ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
+                    backend="jax", **kw)
+    assert port._lookahead == ref._lookahead
+    assert port._bucket_ladder == ref._bucket_ladder
+    assert port._ratio_ladder == ref._ratio_ladder
+    assert port.fetch.startswith("windows") == ref.fetch.startswith("windows")
+
+
+def test_default_engine_resolution():
+    assert AudioEngine("cpu", block_frames=128)._lookahead == 16
+    assert AudioEngine("cpu", block_frames=1024)._lookahead == 2
+    assert AudioEngine("cpu", block_frames=4096, num_voices=16)._lookahead == 0
+    eng = AudioEngine("cpu", num_voices=1024)
+    assert eng._bucket_ladder == [64, 128, 256, 512, 1024]
+    assert eng._ratio_ladder == [4.0]          # gather: one rung
+    assert AudioEngine("cpu", num_voices=16, fetch="windows")._ratio_ladder \
+        == [2.0, 4.0]
+    for kw in ({"voice_buckets": "banana"}, {"ratio_ladder": "on"},
+               {"lookahead": "soon"}):
+        with pytest.raises(ValueError):
+            AudioEngine("cpu", num_voices=16, **kw)
 
 
 def test_bad_options_are_rejected():
@@ -268,8 +307,10 @@ def test_bad_options_are_rejected():
 
 
 def test_port_never_imports_jax():
-    """The port, its engine and chip_smoke's import chain load without JAX
-    (a subprocess: this test process has JAX loaded by tests/conftest.py)."""
+    """The port, its engine and chip_smoke's import chain load without JAX,
+    and a default engine runs a horizon and adopts its speculative successor
+    without loading it (the spec workers included) — a subprocess: this
+    test process has JAX loaded by tests/conftest.py."""
     code = (
         "import sys\n"
         "import libzl_tpu_torch, libzl_tpu_torch.engine.engine\n"
@@ -277,10 +318,14 @@ def test_port_never_imports_jax():
         "import chip_smoke\n"
         "from libzl_tpu_torch.engine.engine import AudioEngine\n"
         "e = AudioEngine('cpu', num_voices=16, block_frames=128)\n"
+        "assert e._lookahead == 16\n"
         "chip_smoke.build_session(e, num_voices=16, num_clips=2)\n"
         "e.warmup()\n"
-        "for _ in range(3):\n"
+        "for _ in range(40):\n"
         "    e.update_session(e.process_block())\n"
+        "kinds = e.stats()['slo_by_kind']\n"
+        "assert kinds['horizon'][1] >= 1 and kinds['adopt'][1] >= 1, kinds\n"
+        "assert e.stats()['spec_failures'] == 0\n"
         "mods = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "assert not mods, mods\n"
         "print('ok')\n"

@@ -185,8 +185,9 @@ def test_engine_on_card_matches_cpu(B):
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V = 64
-    gpu = AudioEngine("cuda", block_frames=B, num_voices=V)
-    cpu = AudioEngine("cpu", block_frames=B, num_voices=V)
+    per_block = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
+    gpu = AudioEngine("cuda", block_frames=B, num_voices=V, **per_block)
+    cpu = AudioEngine("cpu", block_frames=B, num_voices=V, **per_block)
     assert gpu.fetch == "windows"
     for e in (gpu, cpu):
         chip_smoke.build_session(e, num_voices=V, num_clips=8)
@@ -202,3 +203,48 @@ def test_engine_on_card_matches_cpu(B):
                                    atol=atol)
     assert fw.fetch_interp.launches - before == 8
     assert gpu.fetch_dispatches == {"windows": 8, "gather": 0}
+
+
+@pytest.mark.cuda
+def test_horizon_engine_on_card_matches_per_block():
+    """The default engine on "cuda" (H=16 horizons rendered on the engine
+    thread and, speculatively, on the dispatch thread) against the same
+    engine at lookahead=0, V=64, B=128, through two adoptions and an
+    event-block rebuild (a note-off): voice peaks atol 2e-6; master rtol
+    1e-5, atol 2e-6 per voice in the densest lane (the engine tolerance:
+    cuBLAS handles are per thread, so bit-equality is not assumed across
+    threads). Every horizon slice and per-block block launched the kernel
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    V, B = 64, 128
+    hz = AudioEngine("cuda", block_frames=B, num_voices=V)
+    pb = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=0)
+    assert hz._lookahead == 16 and hz.fetch == "windows"
+    for e in (hz, pb):
+        chip_smoke.build_session(e, num_voices=V, num_clips=8)
+    hz.warmup()
+    before = fw.fetch_interp.launches
+    for b in range(48):
+        if b == 40:
+            for e in (hz, pb):
+                chip_smoke.note_off(e, 3)
+        og = hz.process_block().outputs
+        op = pb.process_block().outputs
+        lanes = np.bincount(pb.pool.lane[pb.pool.active], minlength=12)
+        atol = 2e-6 * max(int(lanes.max()), 1)
+        torch.testing.assert_close(og.voice_peaks, op.voice_peaks, rtol=0,
+                                   atol=2e-6)
+        torch.testing.assert_close(og.master, op.master, rtol=1e-5, atol=atol)
+    hz.drain_speculation()
+    torch.cuda.synchronize()
+    stats = hz.stats()
+    assert stats["spec_failures"] == 0, stats["spec_last_failure"]
+    assert stats["slo_by_kind"]["adopt"][1] >= 2
+    assert hz.fetch_dispatches["gather"] == 0
+    assert pb.fetch_dispatches["gather"] == 0
+    assert fw.fetch_interp.launches - before == \
+        hz.fetch_dispatches["windows"] + pb.fetch_dispatches["windows"]
