@@ -37,20 +37,44 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    with a "cuda" engine at lookahead=0 with the same buckets (max
    difference printed); the kernel's launches must equal the horizon
    slices and per-block blocks rendered with the windows fetch, no gather
-   fallback, no failed speculative build.
+   fallback, no failed speculative build;
+7. bridge       — the C ABI bridge (libzl_tpu_torch.capi.bridge) in process
+   with LIBZL_TPU_NO_PUMP=1, 1024 voices, B=128: the 64 clips written as
+   WAVs and loaded by clip_new, clip_play and timer_start, an in-memory
+   non-pacing sink, 192 blocks with global-playback recording, then 192
+   with a `lane:2` port recording added; on "cuda" with the bounce drain at
+   its default (32) and at 1, and on "cpu". The two "cuda" sink streams are
+   bit-equal; both, and the lane recording, agree with "cpu" (phase 4's
+   rule); the kernel's launches equal the engines' windows dispatches;
+8. pump         — the wall-clock pump on "cuda" for 5 s with a null sink and
+   per-block delivery, the session loaded while it runs: no pump error, no
+   failed speculative build; blocks rendered against block periods,
+   phase_stats, SLO misses per kind and the per-block copy wait printed;
+9. shim         — the port's libzl.so (native/libzl_shim.cpp built over the
+   port's bridge) driven by libzl_tpu_torch.capi.abi_client in a subprocess
+   on "cuda" at the ABI defaults: it must print CAPI-OK device=cuda (where
+   Python.h is missing the phase prints NOT RUN and why);
+10. thumbnails  — thumbnail_batch of the 64 clips on "cuda", min/max
+   bit-equal to the CPU, timed;
+11. CLI         — `python -m libzl_tpu_torch.cli render ... --device cuda`
+   for 2 s of a looped clip: the WAV's peak must exceed 0.05.
 
 The line before the last holds the kernel record as JSON (its launches are
-those of phases 4 and 6, each counted from 0 around its engine run); the
-last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}.
+those of phases 4, 6, 7 and 8, each counted from 0 around its run); the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +97,7 @@ PEAK_ATOL = 2e-6
 MIX_RTOL = 1e-5
 MIX_ATOL_PER_VOICE = 2e-6
 
+ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "libzl_tpu_torch/csrc/fetch_interp.cu"
 KERNEL_REPLACES = "libzl_tpu/ops/fetch_pallas.py:450"
 
@@ -86,38 +111,55 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def session_plan(sr: int, num_voices: int = NUM_VOICES,
+                 num_clips: int = NUM_CLIPS):
+    """bench.py's session, drawn from seed 0: `num_clips` two-partial sine
+    clips of 0.4-2 s ([T, 1] f32) and one looped ClipCommand per voice
+    across 10 channels, as `make_command(clip_id)` callables."""
+    from libzl_tpu.engine.commands import ClipCommand
+
+    rng = np.random.default_rng(0)
+    waves = []
+    for i in range(num_clips):
+        seconds = float(rng.uniform(0.4, 2.0))
+        t = np.arange(int(sr * seconds)) / sr
+        freq = 110.0 * (2.0 ** (i % 24 / 12.0))
+        waves.append((
+            0.25 * np.sin(2 * np.pi * freq * t)
+            + 0.1 * np.sin(2 * np.pi * 2 * freq * t)
+        ).astype(np.float32)[:, None])
+    voices = []
+    for v in range(num_voices):
+        # distinct notes per (clip, channel) pair so no commands coalesce
+        note = 48 + (v // 320) * 5 + int(rng.integers(0, 5))
+        volume = float(rng.uniform(0.3, 1.0))
+
+        def make_command(clip_id, v=v, note=note, volume=volume):
+            cmd = ClipCommand.channel(clip_id, v % 10)
+            cmd.midi_note = note
+            cmd.change_volume = True
+            cmd.volume = volume
+            cmd.looping = True
+            cmd.start_playback = True
+            return cmd
+
+        voices.append((v % num_clips, make_command))
+    return waves, voices
+
+
 def build_session(engine, num_voices: int = NUM_VOICES,
                   num_clips: int = NUM_CLIPS):
-    """bench.py's build_session on a given engine: `num_clips` two-partial
-    sine clips of 0.4-2 s and one looped ClipCommand per voice across 10
-    channels, all drawn from seed 0, transport started at 120 BPM."""
-    from libzl_tpu.engine.commands import ClipCommand
+    """bench.py's build_session on a given engine: session_plan's clips and
+    voices, transport started at 120 BPM."""
     from libzl_tpu.io.wav import AudioData
     from libzl_tpu.models.clip import ClipAudioSource
 
     sr = engine.sample_rate
     engine.start_transport(bpm=120)
-    rng = np.random.default_rng(0)
-    clips = []
-    for i in range(num_clips):
-        seconds = float(rng.uniform(0.4, 2.0))
-        t = np.arange(int(sr * seconds)) / sr
-        freq = 110.0 * (2.0 ** (i % 24 / 12.0))
-        wave = (
-            0.25 * np.sin(2 * np.pi * freq * t)
-            + 0.1 * np.sin(2 * np.pi * 2 * freq * t)
-        ).astype(np.float32)[:, None]
-        clips.append(ClipAudioSource(engine, audio=AudioData(wave, sr)))
-    for v in range(num_voices):
-        clip = clips[v % num_clips]
-        cmd = ClipCommand.channel(clip.id, v % 10)
-        # distinct notes per (clip, channel) pair so no commands coalesce
-        cmd.midi_note = 48 + (v // 320) * 5 + int(rng.integers(0, 5))
-        cmd.change_volume = True
-        cmd.volume = float(rng.uniform(0.3, 1.0))
-        cmd.looping = True
-        cmd.start_playback = True
-        engine.schedule_clip_command(cmd, 0)
+    waves, voices = session_plan(sr, num_voices, num_clips)
+    clips = [ClipAudioSource(engine, audio=AudioData(w, sr)) for w in waves]
+    for i, make_command in voices:
+        engine.schedule_clip_command(make_command(clips[i].id), 0)
     return clips
 
 
@@ -737,6 +779,302 @@ def _default_timing(device, card: str, res: dict) -> None:
     e.drain_speculation()
 
 
+# ----------------------------------------------- the C ABI slice (7-11)
+
+BRIDGE_BLOCKS = 384        # per run: half with global recording (drained),
+                           # half with a lane port recording (per block)
+PUMP_SECONDS = 5.0
+ABI_PLAY_CHANNEL = -2      # ClipAudioSource_play's channel (lane 0)
+
+
+class MemorySink:
+    """A non-pacing in-memory audio sink: every block written, in order."""
+
+    pacing = False
+    name = "memory"
+
+    def __init__(self):
+        self.blocks = []
+
+    def write(self, block):
+        self.blocks.append(np.array(block))
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables (None unsets) for a block, then restore."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def write_session_wavs(tmp: str) -> list:
+    from libzl_tpu.io.wav import write_wav
+
+    waves, _ = session_plan(SAMPLE_RATE)
+    paths = []
+    for i, w in enumerate(waves):
+        paths.append(f"{tmp}/clip{i:02d}.wav")
+        write_wav(paths[-1], w, SAMPLE_RATE)
+    return paths
+
+
+def abi_session(bridge, wavs: list) -> None:
+    """The north-star session through the C entry points: the 64 clips by
+    clip_new and clip_play (one looped voice each, on the ABI's play
+    channel), the other 960 voices as scheduled looped ClipCommands under
+    the runtime lock (as an embedding host schedules notes), timer_start."""
+    rt = bridge._rt()
+    ids = [bridge.clip_new(p) for p in wavs]
+    for cid in ids:
+        bridge.clip_play(cid, True, ABI_PLAY_CHANNEL)
+    _, voices = session_plan(SAMPLE_RATE, NUM_VOICES - len(ids))
+    for i, make_command in voices:
+        cmd = make_command(ids[i])
+        rt.run_locked(lambda cmd=cmd: rt.engine.schedule_clip_command(cmd, 0))
+    bridge.timer_start(120)
+
+
+def bridge_run(device: str, drain, wavs: list, tmp: str) -> dict:
+    """One run of phase 7 through the port's bridge, in process: the ABI
+    session, an in-memory sink, BRIDGE_BLOCKS/2 blocks with global-playback
+    recording only (the bounce drain takes them when K > 1), then
+    BRIDGE_BLOCKS/2 with a `lane:2` port recording added (per-block
+    delivery, every output copied). Returns the sink stream, the port
+    recorder's blocks, the engine's windows/gather dispatches and densest
+    lane, and the seconds it took."""
+    from libzl_tpu_torch.capi import bridge
+
+    tag = f"{device.replace(':', '')}_{drain}"
+    t0 = time.perf_counter()
+    with _env(LIBZL_TPU_NO_PUMP=1, LIBZL_TPU_BACKEND=device,
+              LIBZL_TPU_VOICES=NUM_VOICES, LIBZL_TPU_BLOCK=LIVE_BLOCK,
+              LIBZL_TPU_BOUNCE_DRAIN=drain):
+        bridge.init_engine()
+    try:
+        rt = bridge._rt()
+        engine = rt.engine
+        abi_session(bridge, wavs)
+        sink = MemorySink()
+        rt.set_sink(sink)
+        bridge.levels_set_record_global_playback(True)
+        bridge.levels_set_global_playback_filename_prefix(
+            f"{tmp}/global_{tag}")
+        bridge.levels_start_recording()
+        rt.step_blocks(BRIDGE_BLOCKS // 2)
+        bridge.levels_stop_recording()
+        lane_blocks = []
+        recorder = engine.levels._ports_recorder
+        push = recorder.push
+        recorder.push = lambda block: (lane_blocks.append(np.array(block)),
+                                       push(block))
+        bridge.levels_add_record_port("lane:2", 0)
+        bridge.levels_add_record_port("lane:2", 1)
+        bridge.levels_set_should_record_ports(True)
+        bridge.levels_set_record_ports_filename_prefix(f"{tmp}/ports_{tag}")
+        bridge.levels_start_recording()
+        rt.step_blocks(BRIDGE_BLOCKS - BRIDGE_BLOCKS // 2)
+        bridge.levels_stop_recording()
+        engine.drain_speculation()
+        out = dict(stream=np.concatenate(sink.blocks), lane=np.concatenate(
+            lane_blocks), dispatches=dict(engine.fetch_dispatches),
+            densest=_densest_lane(engine), drain=rt.bounce_drain_blocks,
+            phases=rt.phase_stats(), stats=engine.stats())
+    finally:
+        bridge.shutdown_engine()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _close(got, want, atol: float, label: str) -> float:
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: shape {got.shape} vs {want.shape} / finite")
+    err = np.abs(got - want)
+    bad = err > atol + MIX_RTOL * np.abs(want)
+    check(not bad.any(), f"{label}: max err {err.max():.3e} (atol "
+          f"{atol:.1e}, rtol {MIX_RTOL:g}) at {int(bad.sum())} samples")
+    return float(err.max())
+
+
+def phase_bridge(device, wavs: list, tmp: str) -> int:
+    from libzl_tpu_torch.ops import fetch_windows as fw
+
+    fw.fetch_interp.launches = 0
+    runs = {k: bridge_run(device, k, wavs, tmp) for k in ("auto", 1)}
+    torch.cuda.synchronize()
+    launches = fw.fetch_interp.launches
+    ref = bridge_run("cpu", 1, wavs, tmp)
+    drained, plain = runs["auto"], runs[1]
+    check(drained["drain"] == 32 and plain["drain"] == 1,
+          f"bounce drain resolved to {drained['drain']}/{plain['drain']}")
+    frames = BRIDGE_BLOCKS * LIVE_BLOCK
+    for r in (drained, plain, ref):
+        check(r["stream"].shape == (frames, 2), f"sink got "
+              f"{r['stream'].shape[0]} frames, expected {frames}")
+        check(r["lane"].shape == (frames // 2, 2), "lane recording frames")
+    check(np.array_equal(drained["stream"], plain["stream"]),
+          "drain-32 sink stream differs from drain-1")
+    atol = MIX_ATOL_PER_VOICE * max(ref["densest"], plain["densest"], 1)
+    errs = [_close(r["stream"], ref["stream"], atol, f"bridge {k} vs cpu")
+            for k, r in runs.items()]
+    lane_err = _close(plain["lane"], ref["lane"], atol, "lane recording")
+    peak = float(np.abs(plain["lane"]).max())
+    check(peak > 0.05, f"lane recording silent (peak {peak})")
+    check(float(np.abs(plain["stream"]).max()) > 0.05, "silent sink stream")
+    windows = sum(r["dispatches"]["windows"] for r in runs.values())
+    gather = sum(r["dispatches"]["gather"] for r in runs.values())
+    for k, r in runs.items():
+        check(r["stats"]["spec_failures"] == 0,
+              f"drain {k}: speculative build failed")
+        print(f"bridge {device} drain {r['drain']}: {BRIDGE_BLOCKS} blocks "
+              f"in {r['seconds']:.1f} s (incl. init + 64 clip loads); "
+              f"phases {json.dumps(r['phases'])}")
+    print(f"bridge: drain-32 == drain-1 (bit-equal); vs cpu (densest lane "
+          f"{ref['densest']} voices, atol {atol:.1e}) max err "
+          f"{max(errs):.3e}; lane:2 recording peak {peak:.3f} max err "
+          f"{lane_err:.3e}; kernel launches {launches}, rendered blocks "
+          f"windows {windows} gather {gather}; cpu run "
+          f"{ref['seconds']:.1f} s")
+    check(gather == 0, "a block fell back to the gather fetch")
+    check(launches == windows, f"kernel launched {launches} times for "
+          f"{windows} rendered blocks")
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_pump(device, wavs: list, card: str) -> int:
+    """The wall-clock pump on the card with a null sink and per-block
+    delivery (bounce drain 1: what a pacing sink gets), the session loaded
+    while it runs; PUMP_SECONDS of it measured."""
+    from libzl_tpu_torch.capi import bridge
+    from libzl_tpu_torch.ops import fetch_windows as fw
+
+    fw.fetch_interp.launches = 0
+    with _env(LIBZL_TPU_NO_PUMP=None, LIBZL_TPU_BACKEND=device,
+              LIBZL_TPU_VOICES=NUM_VOICES, LIBZL_TPU_BLOCK=LIVE_BLOCK,
+              LIBZL_TPU_BOUNCE_DRAIN=1, LIBZL_TPU_SINK="null"):
+        bridge.init_engine()
+    try:
+        rt = bridge._rt()
+        engine = rt.engine
+        check(rt._pump is not None, "the pump did not start")
+        abi_session(bridge, wavs)
+        b0, t0 = engine.total_blocks, time.perf_counter()
+        time.sleep(PUMP_SECONDS)
+        blocks = engine.total_blocks - b0
+        wall = time.perf_counter() - t0
+        rt.stop_pump()
+        engine.drain_speculation()
+        stats = engine.stats()
+        waits = rt.profiler.summary().get("copy_wait", {})
+        error = rt.pump_error
+    finally:
+        bridge.shutdown_engine()
+    torch.cuda.synchronize()
+    launches = fw.fetch_interp.launches
+    period = LIVE_BLOCK / SAMPLE_RATE
+    print(f"[{card}] pump (1024 voices, B=128, null sink, per-block "
+          f"delivery): {blocks} blocks rendered in {wall:.2f} s of wall "
+          f"time = {wall / period:.0f} block periods ({blocks * period / wall:.3f}x "
+          f"realtime); kernel launches {launches}")
+    print(f"[{card}] pump copy wait p50 {waits.get('p50_ms', float('nan')):.4f} "
+          f"ms, max {waits.get('max_ms', float('nan')):.4f} ms over "
+          f"{waits.get('count', 0)} blocks")
+    print(f"[{card}] pump phase_stats {json.dumps(rt.phase_stats())}")
+    print(f"[{card}] pump slo_by_kind {json.dumps(stats['slo_by_kind'])}; "
+          f"dsp_load {stats['dsp_load']}")
+    check(error is None, f"pump error: {error!r}")
+    check(stats["spec_failures"] == 0,
+          f"speculative build failed: {stats['spec_last_failure']}")
+    check(launches > 0, "the pump never launched the kernel")
+    return launches
+
+
+def phase_shim() -> None:
+    """The port's libzl.so driven by the ctypes client in a subprocess on
+    the card at the ABI defaults (256 voices, B=128)."""
+    from libzl_tpu_torch import _build
+
+    try:
+        _build.python_include()
+    except FileNotFoundError as e:
+        print(f"shim: NOT RUN ({e})")
+        return
+    t0 = time.perf_counter()
+    so = _build.build_shim()
+    built = time.perf_counter() - t0
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LIBZL_TPU_")}
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "libzl_tpu_torch.capi.abi_client", str(so)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    ran = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"abi_client exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    check(bool(out) and out[-1].startswith("CAPI-OK device=cuda"),
+          f"abi_client printed {out[-1:] or proc.stdout!r}")
+    print(f"shim: {so.name} built in {built:.1f} s; {out[-1]} "
+          f"({ran:.1f} s, a subprocess)")
+
+
+def phase_thumbnails(device, card: str) -> None:
+    from libzl_tpu_torch.ops.thumbnail import thumbnail_batch
+
+    waves, _ = session_plan(SAMPLE_RATE)
+    T = min(w.shape[0] for w in waves)
+    batch = torch.from_numpy(np.stack([w[:T] for w in waves]))
+    want = thumbnail_batch(batch, 512)
+    on_card = batch.to(device)
+    got = thumbnail_batch(on_card, 512)
+    for g, w in zip(got, want):
+        check(torch.equal(g.cpu(), w), "card thumbnails differ from the CPU")
+    ms = float(np.median(_events_ms(lambda: thumbnail_batch(on_card, 512),
+                                    20, True)))
+    t0 = time.perf_counter()
+    thumbnail_batch(batch, 512)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[{card}] thumbnails: {len(waves)} clips x {T} frames -> 512 "
+          f"buckets, min/max bit-equal to the CPU; card {ms:.4f} ms (p50 "
+          f"of 20, CUDA events), host CPU {cpu_ms:.2f} ms")
+    torch.cuda.synchronize()
+
+
+def phase_cli(device, wavs: list, tmp: str) -> None:
+    from libzl_tpu.io.wav import read_wav
+
+    out = f"{tmp}/cli_render.wav"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "libzl_tpu_torch.cli", "render", wavs[0], out,
+         "--device", device, "--seconds", "2", "--loop"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cli render exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    a = read_wav(out)
+    peak = float(np.abs(a.samples).max())
+    print(f"cli: {proc.stdout.strip()} ({time.perf_counter() - t0:.1f} s, "
+          f"a subprocess); WAV {a.num_frames} frames, peak {peak:.3f}")
+    check(a.num_frames >= 2 * SAMPLE_RATE - LIVE_BLOCK, "short render")
+    check(peak > 0.05, f"cli render silent (peak {peak})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -750,6 +1088,15 @@ def main() -> int:
     launches = phase_slice(device)
     timing = phase_timing(device, card)
     launches += phase_default_engine(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        wavs = write_session_wavs(tmp)
+        launches += phase_bridge(device, wavs, tmp)
+        launches += phase_pump(device, wavs, card)
+        phase_shim()
+        phase_thumbnails(device, card)
+        phase_cli(device, wavs, tmp)
+        print(f"phases 7-11: {time.perf_counter() - t0:.1f} s")
     print(f"timing: {json.dumps(timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

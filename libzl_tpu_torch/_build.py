@@ -1,14 +1,20 @@
-"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+"""Build and load the port's native code: the CUDA kernels and libzl.so.
 
-The kernels expose a plain C interface and are loaded with ctypes; nothing
-includes PyTorch's headers, so a build takes seconds. The shared library is
-built on first use into `build/libzl_tpu_torch/` under the repository root and
-named after a hash of the sources and flags, so a stale build never loads.
-A failed build raises with nvcc's output; there is no fallback.
+The kernels (`csrc/*.cu`) expose a plain C interface and are loaded with
+ctypes; nothing includes PyTorch's headers, so a build takes seconds. The
+shared library is built on first use into `build/libzl_tpu_torch/` under the
+repository root and named after a hash of the sources and flags, so a stale
+build never loads. A failed build raises with the compiler's output; there is
+no fallback.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/libzl_tpu_torch/libzl_tpu_torch_<hash>.so \
          libzl_tpu_torch/csrc/*.cu
+
+The port's C ABI library (`build_shim`) is `native/libzl_shim.cpp`, compiled
+unchanged through `csrc/libzl_shim_torch.cpp`, with the host C++ compiler and
+the flags of native/Makefile, into `build/libzl_tpu_torch/libzl_<hash>.so`.
+It needs the repository checkout (native/) and Python's headers.
 """
 
 from __future__ import annotations
@@ -18,12 +24,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "libzl_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default home
 
@@ -33,6 +42,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+# native/Makefile's CXXFLAGS for libzl.so
+SHIM_CXX_FLAGS = ["-O2", "-fPIC", "-Wall", "-std=c++17", "-shared"]
+SHIM_SOURCE = CSRC / "libzl_shim_torch.cpp"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -62,13 +74,37 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def _hashed(stem: str, files: list, flags: list) -> Path:
+    """`BUILD_DIR/<stem>_<hash>.so`, the hash over the files and flags."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libzl_tpu_torch_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(command, so: Path, what: str) -> tuple:
+    """Run `command(tmp)` (the compiler line writing `tmp`) and move `tmp`
+    to `so` atomically: a concurrent loader never sees half a file.
+    Returns (compiler output, wall seconds); raises on failure."""
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = command(str(tmp))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{what} failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, so)
+    return log, seconds
+
+
+def library_path() -> Path:
+    return _hashed("libzl_tpu_torch", sources(), NVCC_FLAGS)
 
 
 def build() -> Path:
@@ -77,20 +113,10 @@ def build() -> Path:
     so = library_path()
     if so.is_file():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    nvcc = find_nvcc()
+    build_log, build_seconds = _compile(
+        lambda out: [nvcc, *NVCC_FLAGS, "-o", out,
+                     *[str(s) for s in sources()]], so, "nvcc")
     return so
 
 
@@ -120,3 +146,49 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.zl_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+# ------------------------------------------------------------ libzl.so
+
+
+def python_include() -> Path:
+    """The directory holding this interpreter's Python.h; raises when the
+    headers are not installed (the shim cannot be built then)."""
+    inc = Path(sysconfig.get_paths()["include"])
+    if not (inc / "Python.h").is_file():
+        raise FileNotFoundError(
+            f"Python.h not found in {inc}: the port's libzl.so needs "
+            f"Python's development headers")
+    return inc
+
+
+def _python_embed_ldflags() -> list:
+    """`python3-config --ldflags --embed` of this interpreter."""
+    cv = sysconfig.get_config_var
+    flags = [f"-L{cv('LIBDIR')}"]
+    if not cv("Py_ENABLE_SHARED"):
+        flags.insert(0, f"-L{cv('LIBPL')}")
+    flags.append(f"-lpython{cv('VERSION')}{sys.abiflags}")
+    flags += (cv("LIBS") or "").split() + (cv("SYSLIBS") or "").split()
+    return flags
+
+
+def shim_path() -> Path:
+    return _hashed("libzl", [SHIM_SOURCE, NATIVE / "libzl_shim.cpp",
+                             NATIVE / "libzl.h"],
+                   SHIM_CXX_FLAGS + _python_embed_ldflags())
+
+
+def build_shim() -> Path:
+    """The port's libzl.so (the libzl.h C ABI over
+    libzl_tpu_torch.capi.bridge), built with the host C++ compiler unless a
+    build of these exact sources exists."""
+    so = shim_path()
+    if so.is_file():
+        return so
+    cxx = os.environ.get("CXX") or "g++"
+    inc = python_include()
+    _compile(lambda out: [cxx, *SHIM_CXX_FLAGS, f"-I{inc}", f"-I{NATIVE}",
+                          "-o", out, str(SHIM_SOURCE),
+                          *_python_embed_ldflags()], so, cxx)
+    return so

@@ -299,7 +299,7 @@ class AudioEngine:
         if mesh is not None:
             raise ValueError(
                 "mesh: voice sharding over torch.distributed is not ported "
-                "yet (ROADMAP Queue 1 item 5)"
+                "yet (ROADMAP Queue 1 item 2)"
             )
         if voice_buckets not in ("auto", "off"):
             raise ValueError("voice_buckets must be 'auto' or 'off'")
@@ -1302,6 +1302,20 @@ class AudioEngine:
             self._host_strips_snapshot = packed
         return self._device_strips
 
+    def capture_trace(self, n_blocks: int, outdir: str) -> str:
+        """Render `n_blocks` under torch.profiler and write a Chrome trace
+        into `outdir` (chrome://tracing or Perfetto): CUDA and CPU activity
+        on "cuda", CPU activity on "cpu". Host-side per-stage timing stays
+        on `profiler` (BlockProfiler). Returns the trace's path."""
+        from ..utils.profiling import device_trace
+
+        with device_trace(outdir, self.device) as path:
+            res = None
+            for _ in range(max(1, int(n_blocks))):
+                res = self.process_block()
+            res.outputs.master.cpu()   # the last block's render, in the trace
+        return path
+
     def warmup(self) -> int:
         """Build the CUDA kernel (windows fetch on the card), then render —
         from the current pool state, without advancing it — every (bucket,
@@ -1688,8 +1702,10 @@ class AudioEngine:
         (lib/AudioLevels.cpp:325)."""
         if fetched is None:
             fetched = self.fetch_session_arrays(result)
+        # the fetched arrays carry everything the meters read: no tensor
+        # reaches the host models
         self.levels.ingest_block(
-            result.outputs,
+            None,
             peak_override=(fetched["lane_peaks"], fetched["master_peak"]),
             rms_override=fetched["lane_rms"],
         )

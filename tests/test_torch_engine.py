@@ -307,14 +307,19 @@ def test_bad_options_are_rejected():
 
 
 def test_port_never_imports_jax():
-    """The port, its engine and chip_smoke's import chain load without JAX,
-    and a default engine runs a horizon and adopts its speculative successor
-    without loading it (the spec workers included) — a subprocess: this
-    test process has JAX loaded by tests/conftest.py."""
+    """The port, its engine, C ABI bridge, CLI, thumbnails and chip_smoke's
+    import chain load without JAX, and a default engine runs a horizon and
+    adopts its speculative successor without loading it (the spec workers
+    included), as does a bridge session — a subprocess: this test process
+    has JAX loaded by tests/conftest.py."""
     code = (
         "import sys\n"
         "import libzl_tpu_torch, libzl_tpu_torch.engine.engine\n"
         "import libzl_tpu_torch.convert, libzl_tpu_torch._build\n"
+        "import libzl_tpu_torch.capi.bridge, libzl_tpu_torch.capi.abi_client\n"
+        "import libzl_tpu_torch.cli, libzl_tpu_torch.models.waveform\n"
+        "import libzl_tpu_torch.ops.thumbnail\n"
+        "import libzl_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "from libzl_tpu_torch.engine.engine import AudioEngine\n"
         "e = AudioEngine('cpu', num_voices=16, block_frames=128)\n"
@@ -326,6 +331,11 @@ def test_port_never_imports_jax():
         "kinds = e.stats()['slo_by_kind']\n"
         "assert kinds['horizon'][1] >= 1 and kinds['adopt'][1] >= 1, kinds\n"
         "assert e.stats()['spec_failures'] == 0\n"
+        "from libzl_tpu_torch.capi import bridge\n"
+        "bridge.init_engine(num_voices=16, device='cpu', pump=False)\n"
+        "bridge.timer_start(120)\n"
+        "bridge._rt().step_blocks(40)\n"
+        "bridge.shutdown_engine()\n"
         "mods = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "assert not mods, mods\n"
         "print('ok')\n"
