@@ -25,9 +25,12 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    (device ms and kernels per block, device busy share); default engine:
    realtime factor and ms/block at both geometries, SLO misses per kind,
    DSP load, the horizon-build / adoption-wait / emit spans, and a paced
-   live run (one block per period); kernel and plain fetch ms, and the
-   kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA events: device time,
-   and call time with the host's launch latency);
+   live run (one block per period); kernel and plain fetch ms on
+   synthetic engine-like inputs and on the inputs of the session's last
+   per-block dispatch, each beside its bound (the bytes its own inputs
+   need at 3.35 TB/s, unique taps counted once) and the share of it
+   reached, and the kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA
+   events: device time, and call time with the host's launch latency);
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -60,9 +63,10 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    for 2 s of a looped clip: the WAV's peak must exceed 0.05.
 
 The line before the last holds the kernel record as JSON (its launches are
-those of phases 4, 6, 7 and 8, each counted from 0 around its run); the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}.
+those of phases 4, 6, 7 and 8, each counted from 0 around its run; its
+times and bound are those of the session's last per-block dispatch at
+B=1024); the last line is {"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -116,7 +120,7 @@ def session_plan(sr: int, num_voices: int = NUM_VOICES,
     """bench.py's session, drawn from seed 0: `num_clips` two-partial sine
     clips of 0.4-2 s ([T, 1] f32) and one looped ClipCommand per voice
     across 10 channels, as `make_command(clip_id)` callables."""
-    from libzl_tpu.engine.commands import ClipCommand
+    from libzl_tpu_torch.engine.commands import ClipCommand
 
     rng = np.random.default_rng(0)
     waves = []
@@ -151,8 +155,8 @@ def build_session(engine, num_voices: int = NUM_VOICES,
                   num_clips: int = NUM_CLIPS):
     """bench.py's build_session on a given engine: session_plan's clips and
     voices, transport started at 120 BPM."""
-    from libzl_tpu.io.wav import AudioData
-    from libzl_tpu.models.clip import ClipAudioSource
+    from libzl_tpu_torch.io.wav import AudioData
+    from libzl_tpu_torch.models.clip import ClipAudioSource
 
     sr = engine.sample_rate
     engine.start_transport(bpm=120)
@@ -166,7 +170,7 @@ def build_session(engine, num_voices: int = NUM_VOICES,
 def note_off(engine, voice: int) -> None:
     """Schedule a stop of `voice`'s note (its clip, channel and note: the
     reference's stop-matching identity)."""
-    from libzl_tpu.engine.commands import ClipCommand
+    from libzl_tpu_torch.engine.commands import ClipCommand
 
     pool = engine.pool
     cmd = ClipCommand.channel(int(pool.clip_id[voice]),
@@ -221,8 +225,9 @@ def phase_build() -> None:
 def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
                   device, r_max: float = 4.0):
     """Random bank, windows and window-relative positions for regions of
-    region_rows(B, r_max). Engine-like draws keep each voice's positions
-    inside its regions at pitch ratios up to r_max; hostile draws add
+    region_rows(B, r_max). Engine-like draws play each voice as the engine
+    does: region A up to a random wrap frame, then region B from its start,
+    each at one whole-sample pitch ratio up to r_max; hostile draws add
     negative, past-the-end and region-edge positions (p = region-1 reads
     region B's first sample at tap p+1; 2*region-2 is the last valid
     position, 2*region-1 the first invalid one)."""
@@ -239,13 +244,23 @@ def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
     span = int(r_max * B) + 2
     base_a = rng.integers(0, region - span, V)[:, None]
     base_b = region + rng.integers(0, region - span, V)[:, None]
-    # whole-sample ratios 0..r_max per frame
+    # whole-sample ratios 0..r_max per voice; region A before the wrap
+    # frame, region B from it on
     step = rng.integers(0, int(r_max) + 1, (V, 1))
     frames = np.arange(B)[None, :]
-    seg = rng.integers(0, 2, (V, B))
-    pos = np.where(seg == 0, base_a + frames * step, base_b + frames * step)
+    wrap = rng.integers(0, B + 1, (V, 1))
+    pos = np.where(frames < wrap, base_a + frames * step,
+                   base_b + (frames - wrap) * step)
     if hostile:
-        kind = rng.integers(0, 6, (V, B))
+        # even voices play region A's run to its last sample (tap p+1 ==
+        # region reads region B's first sample), then region B from its
+        # start; odd voices get the hostile positions
+        even = (np.arange(V) % 2 == 0)[:, None]
+        end_a = region - 1 - np.maximum(wrap - 1, 0) * step
+        pos = np.where(even & (frames < wrap), end_a + frames * step, pos)
+        pos = np.where(even & (frames >= wrap),
+                       region + (frames - wrap) * step, pos)
+        kind = np.where(even, 0, rng.integers(0, 6, (V, B)))
         pos = np.where(kind == 2, rng.integers(-100, 0, (V, B)), pos)
         pos = np.where(kind == 3, rng.integers(2 * region - 1,
                                                2 * region + 100, (V, B)), pos)
@@ -486,21 +501,32 @@ def phase_default_engine(device) -> int:
     return total
 
 
-def _events_ms(fn, iters: int, primed: bool) -> list:
+_FLUSH = []
+
+
+def _events_ms(fn, iters: int, primed: bool, dirty_l2: bool = True) -> list:
     """Per-call ms over CUDA events, one event pair per call, with the 50 MB
     L2 flushed before each call (the render's other tensors evict the
-    bank's windows between fetches). `primed` queues a ~2.5 ms device spin
-    after the flush, so the host enqueues the call (the plain version's
-    ~20 ops included) while the card is busy and the pair brackets device
-    execution only; unprimed, the pair also
-    holds the host's launch latency (the card idles while the host
-    launches)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bank's windows between fetches): by writing a 64 MB buffer, which
+    leaves the L2 full of modified lines as the render's preceding writes
+    do (`dirty_l2`, the rule of every PERF.md kernel time), or by reading
+    it, which leaves it clean. `primed` queues a ~2.5 ms device spin after
+    the flush, so the host enqueues the call (the plain version's ~20 ops
+    included) while the card is busy and the pair brackets device
+    execution only; unprimed, the pair also holds the host's launch
+    latency (the card idles while the host launches)."""
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(64 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    flush = _FLUSH[0]
     out = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
+        if dirty_l2:
+            flush.zero_()
+        else:
+            flush.max()
         if primed:
             torch.cuda._sleep(5_000_000)
         start.record()
@@ -549,6 +575,63 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
           f"unprofiled process_block time ({block_ms:.4f} ms)")
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate
+F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
+
+
+def fetch_bound(args, r_max: float = 4.0) -> dict:
+    """The least time the card could take for one windows fetch on these
+    inputs: each input byte read once and each output byte written once
+    (pos and alpha 8 B and the output 8 B a (voice, frame), the windows 8 B
+    a voice, and the bank samples the valid frames tap, each unique sample
+    of both channels once), against the float32 work (per frame and
+    channel: the int16 dequant of two taps, two products and a sum)."""
+    from libzl_tpu_torch.ops.fetch_windows import region_rows
+
+    sound, pos, _, win_a, win_b = args
+    V, B = pos.shape
+    region = region_rows(B, r_max)
+    n = sound.shape[1]
+    p = pos.long()
+    valid = (p >= 0) & (p < 2 * region - 1)
+    base_a = win_a.long()[:, None] * 512
+    base_b = win_b.long()[:, None] * 512 - region
+    taps = torch.cat([torch.where(t < region, base_a + t, base_b + t)[valid]
+                      for t in (p, p + 1)])
+    taps = taps[(taps >= 0) & (taps < n)]
+    unique = int(torch.unique(taps).numel())
+    nbytes = 16 * V * B + 8 * V + unique * 2 * sound.element_size()
+    ops = V * B * 2 * (3 + (2 if sound.dtype == torch.int16 else 0))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "unique_taps": unique,
+            "valid_frames": int(valid.sum()),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def capture_fetch(engine) -> tuple:
+    """One more block of `engine`; returns (args, r_max) of its windows
+    fetch call: the inputs of the session's last per-block dispatch."""
+    from libzl_tpu_torch.ops import voice
+
+    calls = []
+    real = voice.fetch_interp
+
+    def spy(*args, **kw):
+        calls.append((args, kw.get("r_max", 4.0)))
+        return real(*args, **kw)
+
+    voice.fetch_interp = spy
+    try:
+        engine.process_block()
+    finally:
+        voice.fetch_interp = real
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"{len(calls)} fetch calls in one block")
+    return calls[-1]
+
+
 def phase_timing(device, card: str) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
     from libzl_tpu_torch.ops import fetch_windows as fw
@@ -579,6 +662,7 @@ def phase_timing(device, card: str) -> dict:
     res["super_dispatch_ms_p50"] = prof["dispatch"]["p50_ms"]
     res["super_process_block_ms_p50"] = prof["process_block"]["p50_ms"]
     super_profile = _device_profile(eng, 20)
+    session = {SUPER_BLOCK: capture_fetch(eng)}
     print(f"[{card}] superblock realtime factor {res['rt_superblock']:.3f}x "
           f"(rounds {', '.join(f'{r:.3f}' for r in rounds)}; 1024 voices, "
           f"64 clips, B=1024, 48 kHz)")
@@ -608,6 +692,7 @@ def phase_timing(device, card: str) -> dict:
     res["live_host_program_ms_p50"] = lprof["host_program"]["p50_ms"]
     res["live_dispatch_ms_p50"] = lprof["dispatch"]["p50_ms"]
     live_profile = _device_profile(live, 40)
+    session[LIVE_BLOCK] = capture_fetch(live)
     print(f"[{card}] live block (B=128, 1024 voices) ms/block p50 "
           f"{res['live_ms_p50']:.4f} chained mean "
           f"{res['live_ms_chained_mean']:.4f} (realtime "
@@ -627,31 +712,51 @@ def phase_timing(device, card: str) -> dict:
 
     _default_timing(device, card, res)
 
-    # fetch kernel vs plain version at the main path's shapes, in turns
+    # fetch kernel vs plain version at the main path's shapes, in turns, on
+    # synthetic engine-like inputs and on the session's last per-block
+    # dispatch; beside each, the bound from the call's own inputs
     rng = np.random.default_rng(99)
     for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
-        args = kernel_inputs(rng, V, B, BANK_FRAMES, torch.float32, False,
-                             device)
-        fns = {"kernel": lambda: fw.fetch_interp(*args),
-               "plain": lambda: fw.fetch_interp_plain(*args)}
-        for f in fns.values():
-            for _ in range(5):
-                f()
-        for primed, tag in ((True, ""), (False, "call_")):
-            samples = {"kernel": [], "plain": []}
-            for name in ("plain", "kernel", "kernel", "plain"):
-                samples[name] += _events_ms(fns[name], 25, primed)
-            k = float(np.median(samples["kernel"]))
-            p = float(np.median(samples["plain"]))
-            res[f"kernel_{tag}ms_{V}x{B}"] = k
-            res[f"plain_{tag}ms_{V}x{B}"] = p
-            mbytes = V * B * 24 / 1e6
-            what = ("device time" if primed
-                    else "call time incl. host launch latency")
-            print(f"[{card}] fetch V={V} B={B} {what}: kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms (p50 of 50 CUDA-event timings each, in "
-                  f"turns; ~{mbytes:.1f} MB -> kernel "
-                  f"{mbytes / 1e3 / (k / 1e3):.1f} GB/s)")
+        cases = {
+            "synthetic": (kernel_inputs(rng, V, B, BANK_FRAMES,
+                                        torch.float32, False, device), 4.0),
+            "session": session[B],
+        }
+        for label, (args, r_max) in cases.items():
+            fns = {"kernel": lambda: fw.fetch_interp(*args, r_max=r_max),
+                   "plain": lambda: fw.fetch_interp_plain(*args,
+                                                          r_max=r_max)}
+            for f in fns.values():
+                for _ in range(5):
+                    f()
+            bound = fetch_bound(args, r_max)
+            key = f"{V}x{B}_{label}"
+            res[f"bound_ms_{key}"] = bound["bound_ms"]
+            res[f"bytes_{key}"] = bound["bytes"]
+            res[f"bound_by_{key}"] = bound["bound_by"]
+            for primed, tag in ((True, ""), (False, "call_")):
+                samples = {"kernel": [], "plain": []}
+                for name in ("plain", "kernel", "kernel", "plain"):
+                    samples[name] += _events_ms(fns[name], 25, primed)
+                k = float(np.median(samples["kernel"]))
+                p = float(np.median(samples["plain"]))
+                res[f"kernel_{tag}ms_{key}"] = k
+                res[f"plain_{tag}ms_{key}"] = p
+                what = ("device time" if primed
+                        else "call time incl. host launch latency")
+                print(f"[{card}] fetch V={V} B={B} {label} "
+                      f"({str(args[0].dtype)[6:]} bank, r_max {r_max:g}) "
+                      f"{what}: kernel {k:.4f} ms, plain {p:.4f} ms (p50 of "
+                      f"50 CUDA-event timings each, in turns)")
+            print(f"[{card}] fetch V={V} B={B} {label}: "
+                  f"{bound['valid_frames']} valid frames, "
+                  f"{bound['unique_taps']} unique taps, {bound['bytes']} "
+                  f"bytes -> bound {bound['bound_ms']:.5f} ms "
+                  f"({bound['bound_by']}, 3.35 TB/s); the kernel reaches "
+                  f"{100 * bound['bound_ms'] / res[f'kernel_ms_{key}']:.1f}% "
+                  f"of its bound ("
+                  f"{bound['bytes'] / 1e6 / res[f'kernel_ms_{key}']:.0f} "
+                  f"GB/s)")
 
     # the ratio ladder's rungs: the kernel at region_rows(B, 2.0) against
     # region_rows(B, 4.0) on the SAME taps (pitch ratios <= 2; region B's
@@ -751,7 +856,7 @@ def _default_timing(device, card: str, res: dict) -> None:
 
     # paced live run: one block per 2.667 ms period, as a realtime pump
     # would call it; the lag says whether the engine keeps up
-    from libzl_tpu.utils.profiling import SloCounter
+    from libzl_tpu_torch.utils.profiling import SloCounter
 
     e = engine(LIVE_BLOCK)
     period = LIVE_BLOCK / SAMPLE_RATE
@@ -823,7 +928,7 @@ def _env(**values):
 
 
 def write_session_wavs(tmp: str) -> list:
-    from libzl_tpu.io.wav import write_wav
+    from libzl_tpu_torch.io.wav import write_wav
 
     waves, _ = session_plan(SAMPLE_RATE)
     paths = []
@@ -1057,7 +1162,7 @@ def phase_thumbnails(device, card: str) -> None:
 
 
 def phase_cli(device, wavs: list, tmp: str) -> None:
-    from libzl_tpu.io.wav import read_wav
+    from libzl_tpu_torch.io.wav import read_wav
 
     out = f"{tmp}/cli_render.wav"
     t0 = time.perf_counter()
@@ -1107,8 +1212,15 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": launches,
         "max_abs_err": err,
-        "ms": timing[f"kernel_ms_{NUM_VOICES}x{SUPER_BLOCK}"],
-        "plain_ms": timing[f"plain_ms_{NUM_VOICES}x{SUPER_BLOCK}"],
+        # the session's last per-block dispatch at B=1024
+        "ms": timing[f"kernel_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
+        "plain_ms": timing[f"plain_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
+        "bound_ms": timing[f"bound_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
+        "bound_by": timing[f"bound_by_{NUM_VOICES}x{SUPER_BLOCK}_session"],
+        # no single PyTorch call computes this function: two regions, the
+        # tap at p = region-1 crossing into region B, exact zeros outside
+        # [0, 2*region-1) and the int16 dequantisation
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

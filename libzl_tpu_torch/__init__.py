@@ -3,8 +3,9 @@
 A port of `libzl_tpu` (the JAX reference, which stays beside it) to PyTorch,
 with the reference's Pallas TPU kernel rewritten by hand for NVIDIA Hopper.
 The host half — voice pool, program builder, native host core, scheduler,
-clip, MIDI and transport models — is the reference's own JAX-free code; this
-package replaces the device half:
+clip, MIDI, transport and I/O models — is the port's own copy of the
+reference's numpy code, under the reference's paths and names (each module
+says which file it copies); the device half is new:
 
 - `ops/`    — ADSR, positions, the voice render, the windows fetch (plain
               PyTorch version + CUDA kernel), strips and meters;
@@ -13,7 +14,8 @@ package replaces the device half:
 - `convert` — the reference's numpy state (sound bank, packed programs,
               strips) as device tensors.
 
-This package imports `torch` and never `jax`.
+This package imports `torch`, numpy and itself: never `jax`, and nothing of
+`libzl_tpu`.
 """
 
 from .device import resolve_device

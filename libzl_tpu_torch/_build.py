@@ -74,23 +74,25 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _hashed(stem: str, files: list, flags: list) -> Path:
-    """`BUILD_DIR/<stem>_<hash>.so`, the hash over the files and flags."""
+def _hashed(stem: str, files: list, flags: list,
+            build_dir: Optional[Path] = None) -> Path:
+    """`<build_dir or BUILD_DIR>/<stem>_<hash>.so`, the hash over the files
+    and flags."""
     h = hashlib.sha256()
     for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(flags).encode())
-    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    return Path(build_dir or BUILD_DIR) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _compile(command, so: Path, what: str) -> tuple:
     """Run `command(tmp)` (the compiler line writing `tmp`) and move `tmp`
     to `so` atomically: a concurrent loader never sees half a file.
     Returns (compiler output, wall seconds); raises on failure."""
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = command(str(tmp))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from libzl_tpu.io.wav import read_wav, write_wav
+from ..io.wav import read_wav, write_wav
 
 SR = 48000
 STEP_PLAY, STEP_TAIL = 400, 120

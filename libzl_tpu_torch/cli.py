@@ -8,7 +8,7 @@ Usage:
 The port of libzl_tpu/cli.py. `render`, `play`, `env`, `trace` and
 `thumbnail` run on `--device` (default cuda; cuda without a card exits 2 with
 a message, nothing falls back to the CPU). `stretch`, `convert` and `info`
-touch no device and are the reference's own commands.
+touch no device: they are copies of the reference's commands.
 """
 
 from __future__ import annotations
@@ -18,8 +18,6 @@ import sys
 import time
 
 import numpy as np
-
-from libzl_tpu.cli import cmd_convert, cmd_info, cmd_stretch
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -134,11 +132,10 @@ def _build_parser() -> argparse.ArgumentParser:
 def cmd_render(args) -> int:
     import torch
 
-    from libzl_tpu.engine.commands import ClipCommand
-    from libzl_tpu.io.wav import write_wav
-    from libzl_tpu.models.clip import ClipAudioSource
-
+    from .engine.commands import ClipCommand
     from .engine.engine import AudioEngine
+    from .io.wav import write_wav
+    from .models.clip import ClipAudioSource
 
     engine = AudioEngine(
         args.device,
@@ -199,12 +196,11 @@ def cmd_render(args) -> int:
 
 def cmd_play(args) -> int:
     """Live playback: the pump + sink path of the port's C ABI runtime."""
-    from libzl_tpu.engine.commands import ClipCommand
-    from libzl_tpu.io.sinks import make_sink
-    from libzl_tpu.io.wav import read_audio
-    from libzl_tpu.models.clip import ClipAudioSource
-
     from .capi.bridge import EngineRuntime
+    from .engine.commands import ClipCommand
+    from .io.sinks import make_sink
+    from .io.wav import read_audio
+    from .models.clip import ClipAudioSource
 
     audio = read_audio(args.input)   # decode ONCE; the clip reuses it
     sample_rate = audio.sample_rate
@@ -266,15 +262,89 @@ def cmd_play(args) -> int:
     return 0
 
 
+def cmd_stretch(args) -> int:
+    """Offline render only (lib/ClipAudioSource.cpp:384-402's
+    updateTempoAndPitch -> playback file, minus the engine)."""
+    from .io.wav import read_audio, write_wav
+    from .ops.resample import render_playback, resolve_stretch_backend
+
+    a = read_audio(args.input)
+    t0 = time.perf_counter()
+    out = render_playback(
+        a.samples,
+        speed_ratio=args.speed,
+        pitch_semitones=args.pitch,
+        gain_db=args.gain,
+        sample_rate=a.sample_rate,
+        backend=args.stretch_backend,
+    )
+    dt = time.perf_counter() - t0
+    write_wav(args.output, out, a.sample_rate)
+    if not args.quiet:
+        print(
+            f"{args.input}: {a.duration_seconds:.2f}s -> "
+            f"{out.shape[0] / a.sample_rate:.2f}s in {dt:.2f}s "
+            f"(backend={resolve_stretch_backend(args.stretch_backend)}) "
+            f"-> {args.output}"
+        )
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from .io.wav import read_audio, write_wav
+
+    a = read_audio(args.input)
+    suffix = args.output.rsplit(".", 1)[-1].lower()
+    if suffix == "flac":
+        from .io.flac import write_flac
+
+        write_flac(args.output, a.samples, a.sample_rate)
+    elif suffix == "ogg":
+        from .io.codecs import write_ogg
+
+        write_ogg(args.output, a.samples, a.sample_rate)
+    elif suffix == "mp3":
+        from .io.codecs import write_mp3
+
+        write_mp3(args.output, a.samples, a.sample_rate)
+    elif suffix in ("wav", "wave"):
+        write_wav(args.output, a.samples, a.sample_rate)
+    else:
+        print(
+            f"error: unsupported output format {suffix!r} "
+            f"(use .wav/.flac/.ogg/.mp3)", file=sys.stderr,
+        )
+        return 2
+    if not args.quiet:
+        import os
+
+        print(
+            f"{args.input} ({a.duration_seconds:.2f}s) -> {args.output} "
+            f"({os.path.getsize(args.output)} bytes)"
+        )
+    return 0
+
+
+def cmd_info(args) -> int:
+    from .io.wav import read_audio
+
+    a = read_audio(args.input)
+    print(
+        f"{args.input}: {a.num_frames} frames, {a.num_channels}ch, "
+        f"{a.sample_rate} Hz, {a.duration_seconds:.3f}s, "
+        f"peak {np.abs(a.samples).max():.4f}"
+    )
+    return 0
+
+
 def cmd_env(args) -> int:
     import torch
 
-    from libzl_tpu.io import alsa, codecs
-    from libzl_tpu.ops.resample import resolve_stretch_backend
-
     from . import _build
     from .engine.engine import AudioEngine
+    from .io import alsa, codecs
     from .ops.fetch_windows import parse_suffix
+    from .ops.resample import resolve_stretch_backend
 
     print("libzl_tpu_torch environment report")
     print(f"  torch {torch.__version__}, CUDA "
@@ -318,9 +388,8 @@ def cmd_env(args) -> int:
 
 
 def cmd_trace(args) -> int:
-    from libzl_tpu.models.clip import ClipAudioSource
-
     from .engine.engine import AudioEngine
+    from .models.clip import ClipAudioSource
 
     eng = AudioEngine(args.device, block_frames=args.block_frames,
                       num_voices=args.voices)

@@ -1,6 +1,7 @@
 """Carry the reference's numpy state across to the port's device tensors.
 
-The engine's "weights" are host state of the reference package: the sound
+The engine's "weights" are host state, the port's copy of the reference's
+numpy code: the sound
 bank (`engine/soundbank.SoundBank.data`, planar [2, N] f32), the packed
 per-voice program (`ops/voice.pack_program` + `fuse_packed`) and the channel
 strips (`ops/voice.pack_strips`). These helpers turn them into tensors on a
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzl_tpu.ops.voice import fuse_packed, pack_strips
+from .ops.voice import fuse_packed, pack_strips
 
 
 def quantize_bank(data: np.ndarray, bank_dtype: str) -> np.ndarray:

@@ -16,21 +16,43 @@
 // reads 0: the host's tail guard (engine/soundbank.region_tail_guard) keeps
 // taps in range, and a broken guard must not fault.
 //
-// Bound: memory. Per (voice, frame) 2 taps x 2 channels are read and 2 f32
-// written, about 24 B (16 B with an int16 bank); at V=1024, B=1024 a call
-// moves about 25 MB. Design: one thread per (v, b). Consecutive threads take
-// consecutive frames of one voice, whose taps are neighbouring samples, so
-// the tap loads and the pos/alpha/out accesses coalesce. Index math is
-// 64-bit. The kernel allocates nothing, never synchronises, and launches on
-// the caller's stream; the C entry points return cudaGetLastError().
+// Bound: memory. Each input byte read once and each output byte written
+// once: pos and alpha 8 B and the output 8 B a (voice, frame), the two
+// window anchors 8 B a voice, and the bank samples the frames tap, each
+// unique sample of both channels once (8 B in f32, 4 B in int16). At V=1024,
+// B=1024 that is 20-27 MB, 6-8 us at 3.35 TB/s.
+//
+// Design. A call is two dependent rounds of loads: the positions, then the
+// taps they name. What keeps the card near its memory rate is many such
+// chains in flight at once, with every warp instruction touching few
+// 32-byte sectors. One CTA covers G voices x a chunk of at most 1024
+// frames, about 256 threads (G = 1 at B=1024, G = 8 at B=128), on a 2-D
+// grid of voice groups x frame chunks: no divide. From B=512 on, a thread
+// takes 4 consecutive frames: pos and alpha as one int4 and one float4
+// load, the two output rows as float4 stores, 16 independent tap loads in
+// flight. Below it a thread takes one frame, so a B=128 call still has a
+// thread per frame to cover the two rounds. Taps are read-only-cache loads:
+// a voice's consecutive frames tap neighbouring samples, which the L1
+// merges into whole sectors. Staging each voice's tap range in shared memory
+// first (cp.async, with or without a bulk-copy ring for the next group's
+// positions) moves the same bytes but puts two CTA-wide barriers between the
+// rounds; it measured slower (tools/fetch_interp_staged.cu, timed by
+// tools/torch_fetch_ab.py).
+//
+// The kernel allocates nothing, never synchronises, and launches on the
+// caller's stream; the C entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
-constexpr int64_t kSoundBlock = 512;   // window anchor granularity (samples)
-constexpr int kThreads = 256;
+constexpr int64_t kSoundBlock = 512;  // window anchor granularity (samples)
+constexpr int kChunkFrames = 1024;    // most frames one CTA covers
+constexpr int kTargetThreads = 256;   // threads per CTA
+constexpr int kVectorFromB = 512;     // 4 frames a thread from this B on
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int16_t x) {
@@ -43,54 +65,130 @@ __device__ __forceinline__ float tap(const T* __restrict__ ch, int64_t i,
   return (i >= 0 && i < n) ? to_f32(__ldg(ch + i)) : 0.0f;
 }
 
-template <typename T>
-__global__ void fetch_interp_kernel(const T* __restrict__ sound, int64_t n,
-                                    const int32_t* __restrict__ pos_local,
-                                    const float* __restrict__ alpha,
-                                    const int32_t* __restrict__ win_blk_a,
-                                    const int32_t* __restrict__ win_blk_b,
-                                    float* __restrict__ out, int64_t V,
-                                    int64_t B, int64_t region) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= V * B) return;
-  const int64_t v = idx / B;
-  const int64_t b = idx - v * B;
-  float* o = out + v * 2 * B + b;  // out[v, 0, b]; out[v, 1, b] is o[B]
-  const int64_t p = pos_local[idx];
-  if (p < 0 || p >= 2 * region - 1) {
-    o[0] = 0.0f;
-    o[B] = 0.0f;
-    return;
+// Thread (x, y) of CTA (bx, by): voice bx * G + y, frames by * chunk + F x
+// .. + F - 1. `vec` (F == 4, B % 4 == 0, 16-byte aligned rows) takes the
+// int4/float4 accesses; otherwise scalar ones with the ragged edge masked.
+template <typename T, int F>
+__global__ void __launch_bounds__(kTargetThreads)
+fetch_interp_kernel(const T* __restrict__ sound, int64_t n,
+                    const int32_t* __restrict__ pos_local,
+                    const float* __restrict__ alpha,
+                    const int32_t* __restrict__ win_blk_a,
+                    const int32_t* __restrict__ win_blk_b,
+                    float* __restrict__ out, int V, int B, int region,
+                    int chunk, bool vec) {
+  const int v = blockIdx.x * blockDim.y + threadIdx.y;
+  const int b0 = blockIdx.y * chunk + threadIdx.x * F;
+  if (v >= V || b0 >= B) return;
+  const int64_t row = static_cast<int64_t>(v) * B;
+  const bool whole = vec && b0 + F <= B;
+
+  int p[F];
+  float a[F];
+  if constexpr (F == 4) {
+    if (whole) {
+      const int4 pv =
+          __ldg(reinterpret_cast<const int4*>(pos_local + row + b0));
+      const float4 av =
+          __ldg(reinterpret_cast<const float4*>(alpha + row + b0));
+      p[0] = pv.x; p[1] = pv.y; p[2] = pv.z; p[3] = pv.w;
+      a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
+    }
   }
-  const int64_t base_a = static_cast<int64_t>(win_blk_a[v]) * kSoundBlock;
-  const int64_t base_b = static_cast<int64_t>(win_blk_b[v]) * kSoundBlock;
-  const int64_t q = p + 1;
-  const int64_t i0 = p < region ? base_a + p : base_b + (p - region);
-  const int64_t i1 = q < region ? base_a + q : base_b + (q - region);
-  const float a = alpha[idx];
+  if (!whole) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const bool in = b0 + k < B;
+      p[k] = in ? __ldg(pos_local + row + b0 + k) : -1;
+      a[k] = in ? __ldg(alpha + row + b0 + k) : 0.0f;
+    }
+  }
+
+  // window-relative t -> bank index: base_a + t in region A, base_b + t in
+  // region B (base_b folds in the -region)
+  const int64_t base_a =
+      static_cast<int64_t>(__ldg(win_blk_a + v)) * kSoundBlock;
+  const int64_t base_b =
+      static_cast<int64_t>(__ldg(win_blk_b + v)) * kSoundBlock - region;
   const T* left = sound;
   const T* right = sound + n;
-  o[0] = tap(left, i0, n) * (1.0f - a) + tap(left, i1, n) * a;
-  o[B] = tap(right, i0, n) * (1.0f - a) + tap(right, i1, n) * a;
+  const int last = 2 * region - 1;  // first invalid position
+  float l[F], r[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    const int q = p[k];
+    const bool ok = q >= 0 && q < last;
+    const int64_t i0 = (q < region ? base_a : base_b) + q;
+    const int64_t i1 = (q + 1 < region ? base_a : base_b) + q + 1;
+    const float s0l = ok ? tap(left, i0, n) : 0.0f;
+    const float s1l = ok ? tap(left, i1, n) : 0.0f;
+    const float s0r = ok ? tap(right, i0, n) : 0.0f;
+    const float s1r = ok ? tap(right, i1, n) : 0.0f;
+    l[k] = ok ? s0l * (1.0f - a[k]) + s1l * a[k] : 0.0f;
+    r[k] = ok ? s0r * (1.0f - a[k]) + s1r * a[k] : 0.0f;
+  }
+
+  float* o = out + 2 * row + b0;  // out[v, 0, b0]; out[v, 1, b0] is o[B]
+  if constexpr (F == 4) {
+    if (whole) {
+      *reinterpret_cast<float4*>(o) = make_float4(l[0], l[1], l[2], l[3]);
+      *reinterpret_cast<float4*>(o + B) = make_float4(r[0], r[1], r[2], r[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    if (b0 + k < B) {
+      o[k] = l[k];
+      o[B + k] = r[k];
+    }
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+template <typename T, int F>
+int launch_frames(const T* sound, int64_t n, const int32_t* pos_local,
+                  const float* alpha, const int32_t* win_blk_a,
+                  const int32_t* win_blk_b, float* out, int V, int B,
+                  int region, cudaStream_t stream) {
+  // frames a CTA covers: B rounded up to 32 F (whole warps), at most 1024
+  const int warp_frames = 32 * F;
+  const int rounded = (B + warp_frames - 1) / warp_frames * warp_frames;
+  const int chunk = rounded < kChunkFrames ? rounded : kChunkFrames;
+  const int tpv = chunk / F;  // threads a voice, a multiple of 32
+  const int group = tpv >= kTargetThreads ? 1 : kTargetThreads / tpv;
+  const bool vec = F == 4 && B % 4 == 0 && aligned16(pos_local) &&
+                   aligned16(alpha) && aligned16(out);
+  const dim3 block(tpv, group);
+  const dim3 grid((V + group - 1) / group, (B + chunk - 1) / chunk);
+  fetch_interp_kernel<T, F><<<grid, block, 0, stream>>>(
+      sound, n, pos_local, alpha, win_blk_a, win_blk_b, out, V, B, region,
+      chunk, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* sound, int64_t n, const void* pos_local,
            const void* alpha, const void* win_blk_a, const void* win_blk_b,
            void* out, int64_t V, int64_t B, int64_t region, void* stream) {
-  const int64_t total = V * B;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  fetch_interp_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(sound), n,
-      static_cast<const int32_t*>(pos_local),
-      static_cast<const float*>(alpha),
-      static_cast<const int32_t*>(win_blk_a),
-      static_cast<const int32_t*>(win_blk_b), static_cast<float*>(out), V, B,
-      region);
-  return static_cast<int>(cudaGetLastError());
+  if (V <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  if (V > INT_MAX / 2 || B > INT_MAX / 2 || region > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto launcher) {
+    return launcher(static_cast<const T*>(sound), n,
+                    static_cast<const int32_t*>(pos_local),
+                    static_cast<const float*>(alpha),
+                    static_cast<const int32_t*>(win_blk_a),
+                    static_cast<const int32_t*>(win_blk_b),
+                    static_cast<float*>(out), static_cast<int>(V),
+                    static_cast<int>(B), static_cast<int>(region),
+                    static_cast<cudaStream_t>(stream));
+  };
+  return B >= kVectorFromB ? args(launch_frames<T, 4>)
+                           : args(launch_frames<T, 1>);
 }
 
 }  // namespace

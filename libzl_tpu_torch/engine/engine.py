@@ -6,9 +6,9 @@ point in `jax.jit`, so importing (let alone subclassing) the reference engine
 loads JAX — which this package must never do. The fork keeps the reference's
 host half as it is (clip admin, scheduling, transport, strips, the timer and
 clip command handlers, the tick walk and MIDI fabric of process_block, the
-session updates) and replaces the device seam: the sound bank and strips as
-device tensors, one fused program upload per block, and the render through
-`render.render_block_fused`.
+session updates), on the port's own copies of the host modules, and replaces
+the device seam: the sound bank and strips as device tensors, one fused
+program upload per block, and the render through `render.render_block_fused`.
 
     BlockClock (musical time)      StepRing (scheduled events)
           │                              │
@@ -43,12 +43,14 @@ import queue
 import threading
 import time
 import traceback
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from libzl_tpu.constants import (
+from .. import _native, convert
+from ..constants import (
     BPM_MAXIMUM,
     BPM_MINIMUM,
     DEFAULT_BLOCK_FRAMES,
@@ -63,8 +65,34 @@ from libzl_tpu.constants import (
     SAMPLER_CHANNEL_MIN,
     channel_to_lane,
 )
-from libzl_tpu.engine.allocator import VoiceAllocator
-from libzl_tpu.engine.commands import (
+from ..device import resolve_device
+from ..midi.router import MidiRouter
+from ..midi.transport import TransportManager
+from ..models.audio_levels import AudioLevels
+from ..models.sampler_map import SamplerNoteMapper
+from ..ops import voice as host_voice
+from ..ops.fetch_windows import parse_suffix
+from ..ops.mixer import default_strip_params
+from ..ops.voice import (
+    _F32_SCALARS,
+    _INT_SCALARS,
+    active_high_water,
+    fuse_packed,
+    horizon_dyn_cols,
+    pack_program,
+    pack_strips,
+)
+from ..timebase import BlockClock, next_bar_delay, schedule_ahead_ticks
+from ..utils.profiling import (
+    BlockProfiler,
+    DspLoad,
+    EventWatchdog,
+    SloCounter,
+)
+from . import hostcore as _hostcore
+from . import render as render_mod
+from .allocator import VoiceAllocator
+from .commands import (
     PASSTHROUGH_SETTING_DRY,
     PASSTHROUGH_SETTING_MUTED,
     PASSTHROUGH_SETTING_PAN,
@@ -74,36 +102,9 @@ from libzl_tpu.engine.commands import (
     Operation,
     TimerCommand,
 )
-from libzl_tpu.engine.scheduler import StepRing, midi_clock_due
-from libzl_tpu.engine.soundbank import SoundBank, region_tail_guard
-from libzl_tpu.engine.voicestate import VoicePool
-from libzl_tpu.midi.router import MidiRouter
-from libzl_tpu.midi.transport import TransportManager
-from libzl_tpu.models.audio_levels import AudioLevels
-from libzl_tpu.models.sampler_map import SamplerNoteMapper
-from libzl_tpu.ops import voice as host_voice
-from libzl_tpu.ops.mixer import default_strip_params
-from libzl_tpu.ops.voice import (
-    _F32_SCALARS,
-    _INT_SCALARS,
-    active_high_water,
-    fuse_packed,
-    horizon_dyn_cols,
-    pack_program,
-    pack_strips,
-)
-from libzl_tpu.timebase import BlockClock, next_bar_delay, schedule_ahead_ticks
-from libzl_tpu.utils.profiling import (
-    BlockProfiler,
-    DspLoad,
-    EventWatchdog,
-    SloCounter,
-)
-
-from .. import convert
-from ..device import resolve_device
-from ..ops.fetch_windows import parse_suffix
-from . import render as render_mod
+from .scheduler import StepRing, midi_clock_due
+from .soundbank import SoundBank, region_tail_guard
+from .voicestate import VoicePool
 
 SPEC_DEPTH_ENV = "LIBZL_TPU_SPEC_DEPTH"
 DEFAULT_SPEC_DEPTH = 2
@@ -350,12 +351,17 @@ class AudioEngine:
         # state advance; the numpy path remains the reference implementation
         self.use_native_host = False
         if host_core in ("auto", "native"):
-            from libzl_tpu.engine import hostcore as _hostcore
-
             if _hostcore.available():
                 self.use_native_host = True
             elif host_core == "native":
-                raise RuntimeError("native host core requested but unavailable")
+                raise RuntimeError(
+                    f"native host core requested but unavailable: "
+                    f"{_native.failure('zl_hostcore')}")
+            else:
+                warnings.warn(
+                    f"native host core unavailable, using the numpy program "
+                    f"builder: {_native.failure('zl_hostcore')}",
+                    RuntimeWarning, stacklevel=2)
 
         # Speculative lookahead horizon: render H blocks from ONE upload and
         # emit them as per-block slices, preempting the horizon whenever an
@@ -981,8 +987,6 @@ class AudioEngine:
                 samples_per_tick=self.clock.samples_per_tick,
             )
         if self.use_native_host:
-            from libzl_tpu.engine import hostcore as _hostcore
-
             res = _hostcore.horizon_update(
                 pool, slices=H, block_start_sample=start0,
                 lane_enabled=lane, **anchor,
@@ -1602,8 +1606,6 @@ class AudioEngine:
         # core's fused advance), "dispatch" the upload + render enqueue (on
         # CUDA the host returns before the card finishes)
         if self.use_native_host:
-            from libzl_tpu.engine import hostcore as _hostcore
-
             with self.profiler.span("host_program"):
                 prog_i, prog_f, died_info = _hostcore.voice_update(
                     self.pool, lane_enabled=self.lane_enabled, **clock_args

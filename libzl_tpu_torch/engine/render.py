@@ -21,8 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from libzl_tpu.constants import DEFAULT_BLOCK_FRAMES
-
+from ..constants import DEFAULT_BLOCK_FRAMES
 from ..ops import meters as meter_ops
 from ..ops import mixer as mixer_ops
 from ..ops import voice as voice_ops

@@ -4,7 +4,8 @@ The port of libzl_tpu/models/waveform.py, which imports the reference's
 thumbnail module and with it JAX. The model owns the data side of the
 reference's QQuickPaintedItem: source, zoom window, a 5-entry thumbnail
 cache, a repaint callback, and ready-to-draw geometry (polygon, SVG). The
-envelopes are reduced on `device`.
+envelopes are reduced on `device` (default "cuda": without a card the
+constructor raises, as AudioEngine("cuda") does).
 """
 
 from __future__ import annotations
@@ -14,17 +15,17 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from libzl_tpu.io.wav import read_audio
-
+from ..device import resolve_device
+from ..io.wav import read_audio
 from ..ops.thumbnail import DEFAULT_THUMB_SIZE, thumbnail_region
 
 THUMBNAIL_CACHE_SIZE = 5  # lib/WaveFormItem.cpp:22
 
 
 class WaveFormItem:
-    def __init__(self, num_buckets: int = DEFAULT_THUMB_SIZE, device="cpu"):
+    def __init__(self, num_buckets: int = DEFAULT_THUMB_SIZE, device="cuda"):
         self.num_buckets = num_buckets
-        self.device = device
+        self.device = resolve_device(device)
         self._samples: Optional[np.ndarray] = None
         self._sample_rate = 0.0
         self._source = ""

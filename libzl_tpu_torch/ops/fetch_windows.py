@@ -20,8 +20,8 @@ import threading
 
 import torch
 
-from libzl_tpu.constants import MAX_PITCH_RATIO, WINDOW_ANCHOR_BLOCK
-from libzl_tpu.engine.soundbank import region_tail_guard
+from ..constants import MAX_PITCH_RATIO, WINDOW_ANCHOR_BLOCK
+from ..engine.soundbank import region_tail_guard
 
 SOUND_BLOCK = 512     # window anchor granularity (samples)
 R_MAX = 4.0           # max pitch ratio (span per block = R_MAX * B)

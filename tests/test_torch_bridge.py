@@ -18,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from libzl_tpu.engine.commands import ClipCommand
-from libzl_tpu.io.sinks import AudioSink, NullSink
-from libzl_tpu.io.wav import AudioData, read_wav, write_wav
-from libzl_tpu.models.clip import ClipAudioSource
+from libzl_tpu_torch.engine.commands import ClipCommand
+from libzl_tpu_torch.io.sinks import AudioSink, NullSink
+from libzl_tpu_torch.io.wav import AudioData, read_wav, write_wav
+from libzl_tpu_torch.models.clip import ClipAudioSource
 from libzl_tpu_torch.capi import bridge
 from libzl_tpu_torch.capi.bridge import EngineRuntime
 
@@ -186,7 +186,7 @@ def test_init_engine_bad_source_spec_does_not_publish(monkeypatch):
 
 
 def test_shutdown_clears_clip_registry(rt, tmp_path):
-    from libzl_tpu.models import clip as clip_mod
+    from libzl_tpu_torch.models import clip as clip_mod
 
     cid = _make_clip(bridge, tmp_path)
     assert clip_mod._registry.get(cid) is not None
@@ -272,7 +272,7 @@ def test_clip_callbacks_via_ctypes_pointers(rt, tmp_path):
 
 
 def test_timer_group(rt, tmp_path):
-    from libzl_tpu.constants import BEAT_SUBDIVISIONS, TICKS_PER_BAR
+    from libzl_tpu_torch.constants import BEAT_SUBDIVISIONS, TICKS_PER_BAR
 
     assert bridge.timer_get_multiplier() == BEAT_SUBDIVISIONS
     ticks = []
@@ -342,7 +342,7 @@ def test_passthrough_and_misc(rt, tmp_path):
 
 
 def test_reload_configuration_env(rt, monkeypatch):
-    from libzl_tpu.midi.router import Destination
+    from libzl_tpu_torch.midi.router import Destination
 
     monkeypatch.setenv("ZYNTHIAN_MIDI_FILTER_OUTPUT", "1")
     bridge.reload_zynthian_configuration()
@@ -621,7 +621,7 @@ def test_demanded_flush_races_pipelined_flush():
 
 
 def test_drain_flushes_before_per_block_resume(tmp_path):
-    from libzl_tpu.io.sinks import make_sink
+    from libzl_tpu_torch.io.sinks import make_sink
 
     rt = EngineRuntime(device="cpu", num_voices=16, bounce_drain=8)
     out = tmp_path / "bounce.wav"
@@ -767,7 +767,12 @@ def test_bridge_matches_reference_bridge(tmp_path, monkeypatch):
     speculative chain): the sink streams agree within the bus tolerance
     (one voice per lane)."""
     from libzl_tpu.capi import bridge as ref_bridge
+    from libzl_tpu.engine import hostcore as ref_hostcore
 
+    # the reference engine takes its numpy program builder (held bit-equal
+    # to the native core by tests/test_hostcore.py): no port test builds
+    # the reference's native/ libraries
+    monkeypatch.setattr(ref_hostcore, "available", lambda: False)
     monkeypatch.setenv("LIBZL_TPU_NO_PUMP", "1")
     monkeypatch.setenv("LIBZL_TPU_VOICES", "16")
     monkeypatch.setenv("LIBZL_TPU_BACKEND", "numpy")

@@ -14,12 +14,12 @@ active pitch ratio: the same taps, so the same output as the top rung.
 import numpy as np
 import pytest
 
-from libzl_tpu.engine.commands import ClipCommand
-from libzl_tpu.io.wav import AudioData
-from libzl_tpu.models.clip import ClipAudioSource
-from libzl_tpu.ops.voice import pack_program
 from libzl_tpu_torch.engine import render as render_mod
+from libzl_tpu_torch.engine.commands import ClipCommand
 from libzl_tpu_torch.engine.engine import AudioEngine
+from libzl_tpu_torch.io.wav import AudioData
+from libzl_tpu_torch.models.clip import ClipAudioSource
+from libzl_tpu_torch.ops.voice import pack_program
 
 SR = 48000
 FIELDS = ("master", "lane_mix", "strip_dry", "strip_wet1", "strip_wet2",

@@ -25,8 +25,9 @@ from test_capi import CLIENT_FULL as REF_CLIENT_FULL
 REPO = Path(__file__).resolve().parent.parent
 NATIVE = REPO / "native"
 PORT_IMPORT = "from libzl_tpu_torch.capi import bridge"
-CLIENT_FULL = REF_CLIENT_FULL.replace("from libzl_tpu.capi import bridge",
-                                      PORT_IMPORT)
+# the reference's client with every import of the reference's modules (its
+# bridge, clip registry and WAV I/O) pointed at the port's
+CLIENT_FULL = REF_CLIENT_FULL.replace("from libzl_tpu.", "from libzl_tpu_torch.")
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +111,7 @@ def test_c_host_embedding(libzl_so, tmp_path):
     )
     wav = tmp_path / "embed.wav"
     t = np.arange(48000) / 48000
-    from libzl_tpu.io.wav import write_wav
+    from libzl_tpu_torch.io.wav import write_wav
 
     write_wav(wav, (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
               48000)

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from libzl_tpu.cli import main as ref_main
-from libzl_tpu.io.wav import read_wav, write_wav
+from libzl_tpu.engine import hostcore as ref_hostcore
 from libzl_tpu_torch.cli import main
+from libzl_tpu_torch.io.wav import read_wav, write_wav
 
 SR = 48000
 REPO = Path(__file__).resolve().parent.parent
@@ -47,7 +48,11 @@ def test_render_loop_cpu(tmp_path, capsys):
     [],
     ["--loop", "--note", "67", "--pan", "0.4", "--attack", "0.01"],
 ])
-def test_render_matches_reference_cli(tmp_path, extra):
+def test_render_matches_reference_cli(tmp_path, monkeypatch, extra):
+    # the reference engine takes its numpy program builder (held bit-equal
+    # to the native core by tests/test_hostcore.py): no port test builds
+    # the reference's native/ libraries
+    monkeypatch.setattr(ref_hostcore, "available", lambda: False)
     src = tmp_path / "in.wav"
     make_tone(src, seconds=0.3)
     outs = {}
@@ -109,7 +114,8 @@ def test_play_file_sink_cpu(tmp_path, capsys):
 
 
 def test_reference_commands(tmp_path, capsys):
-    """info, convert and stretch are the reference's own commands."""
+    """info, convert and stretch: the port's copies of the reference's
+    commands."""
     src = tmp_path / "in.wav"
     make_tone(src, seconds=0.5)
     assert main(["info", str(src)]) == 0

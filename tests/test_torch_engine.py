@@ -22,11 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from libzl_tpu.engine.commands import ClipCommand, Operation, TimerCommand
+from libzl_tpu.engine import commands as ref_commands
 from libzl_tpu.engine.engine import AudioEngine as RefEngine
-from libzl_tpu.io.wav import AudioData
-from libzl_tpu.models.clip import ClipAudioSource
+from libzl_tpu.io import wav as ref_wav
+from libzl_tpu.models import clip as ref_clip
+from libzl_tpu_torch.engine import commands as port_commands
 from libzl_tpu_torch.engine.engine import AudioEngine
+from libzl_tpu_torch.io import wav as port_wav
+from libzl_tpu_torch.models import clip as port_clip
 
 SR = 48000
 V = 32
@@ -35,6 +38,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # default engine (lookahead horizon, buckets, ratio ladder) has its own tests
 # (tests/test_torch_lookahead.py, tests/test_torch_buckets.py)
 PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
+# every reference engine takes the numpy program builder: the reference's
+# own tests hold it bit-equal to the native host core (tests/test_hostcore.py)
+REF_HOST = dict(host_core="numpy")
+
+
+def api(engine):
+    """(ClipAudioSource, AudioData, commands module) of the engine's own
+    package: each engine gets its package's clip and command objects."""
+    if isinstance(engine, RefEngine):
+        return ref_clip.ClipAudioSource, ref_wav.AudioData, ref_commands
+    return port_clip.ClipAudioSource, port_wav.AudioData, port_commands
 
 # (B, blocks, {block: event}) — events land at the same musical places
 SCRIPTS = {
@@ -44,14 +58,14 @@ SCRIPTS = {
 
 
 def make_clips(engine):
+    clip_cls, data_cls, _ = api(engine)
     clips = []
     for i, (seconds, freq) in enumerate(
             [(0.1, 220.0), (0.03, 330.0), (0.01, 440.0), (0.07, 550.0)]):
         t = np.arange(int(SR * seconds)) / SR
         wave = np.stack([0.4 * np.sin(2 * np.pi * freq * t),
                          0.3 * np.sin(2 * np.pi * 1.01 * freq * t)], axis=1)
-        clip = ClipAudioSource(engine, audio=AudioData(
-            wave.astype(np.float32), SR))
+        clip = clip_cls(engine, audio=data_cls(wave.astype(np.float32), SR))
         clip.adsr_release = 0.005
         clips.append(clip)
     clips[3].set_pan(0.5)
@@ -61,6 +75,7 @@ def make_clips(engine):
 
 def start_session(engine):
     clips = make_clips(engine)
+    ClipCommand = api(engine)[2].ClipCommand
     engine.start_transport(bpm=120)
     clips[0].play(loop=True, midi_channel=0)
     clips[1].play(loop=False, midi_channel=1)
@@ -76,6 +91,9 @@ def start_session(engine):
 
 
 def apply_event(engine, clips, event):
+    cmds = api(engine)[2]
+    ClipCommand, Operation, TimerCommand = (
+        cmds.ClipCommand, cmds.Operation, cmds.TimerCommand)
     if event == "note_off":
         clips[0].stop(0)
     elif event == "bpm":
@@ -138,11 +156,11 @@ def test_engine_matches_reference_numpy_and_jax(B, host_core):
     assert port.use_native_host == (host_core == "auto")
     got, got_levels = run_script(port, B, session=True)
     ref_np = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
-                       backend="numpy")
+                       backend="numpy", **REF_HOST)
     want_np, want_levels = run_script(ref_np, B, session=True)
     ref_jax = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
                         backend="jax", lookahead=0, voice_buckets="off",
-                        fetch="gather")
+                        fetch="gather", **REF_HOST)
     want_jax, _ = run_script(ref_jax, B)
     assert_blocks_close(got, want_np, "numpy")
     assert_blocks_close(got, want_jax, "jax")
@@ -184,11 +202,11 @@ def test_over_envelope_pitch_dispatches_gather():
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                       fetch="windows", max_pitch_ratio=2.0, **PER_BLOCK)
     ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
-                    backend="numpy", max_pitch_ratio=2.0)
+                    backend="numpy", max_pitch_ratio=2.0, **REF_HOST)
     outs = []
     for e in (eng, ref):
         clip = make_clips(e)[0]
-        cmd = ClipCommand.channel(clip.id, 0)
+        cmd = api(e)[2].ClipCommand.channel(clip.id, 0)
         cmd.midi_note = 60 + 19        # ratio ~3.0 > 2.0
         cmd.change_volume = True
         cmd.volume = 1.0
@@ -207,7 +225,7 @@ def test_int16_bank_matches_reference():
     port = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                        bank_dtype="int16")
     ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
-                    backend="numpy", bank_dtype="int16")
+                    backend="numpy", bank_dtype="int16", **REF_HOST)
     got, _ = run_script(port, B)
     want, _ = run_script(ref, B)
     assert port._sound_data_for_backend().dtype == torch.int16
@@ -222,7 +240,7 @@ def test_convert_matches_reference_state():
     from libzl_tpu_torch import convert
 
     ref = RefEngine(sample_rate=SR, block_frames=128, num_voices=V,
-                    backend="numpy", bank_dtype="int16")
+                    backend="numpy", bank_dtype="int16", **REF_HOST)
     start_session(ref)
     ref.process_block()
     bank = convert.sound_bank_tensor(ref.bank.data, "cpu", "int16",
@@ -273,7 +291,7 @@ def test_options_resolve_as_the_reference(B, V, kw):
     port = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                        **kw)
     ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
-                    backend="jax", **kw)
+                    backend="jax", **REF_HOST, **kw)
     assert port._lookahead == ref._lookahead
     assert port._bucket_ladder == ref._bucket_ladder
     assert port._ratio_ladder == ref._ratio_ladder
@@ -307,20 +325,23 @@ def test_bad_options_are_rejected():
 
 
 def test_port_never_imports_jax():
-    """The port, its engine, C ABI bridge, CLI, thumbnails and chip_smoke's
-    import chain load without JAX, and a default engine runs a horizon and
-    adopts its speculative successor without loading it (the spec workers
-    included), as does a bridge session — a subprocess: this test process
-    has JAX loaded by tests/conftest.py."""
+    """Every module of the port (the package walked) and chip_smoke load
+    without JAX and without any module of the JAX package `libzl_tpu`, and a
+    default engine runs a horizon and adopts its speculative successor
+    without loading either (the spec workers included), as does a bridge
+    session of 40 blocks — a subprocess: this test process has both loaded
+    by tests/conftest.py."""
     code = (
-        "import sys\n"
-        "import libzl_tpu_torch, libzl_tpu_torch.engine.engine\n"
-        "import libzl_tpu_torch.convert, libzl_tpu_torch._build\n"
-        "import libzl_tpu_torch.capi.bridge, libzl_tpu_torch.capi.abi_client\n"
-        "import libzl_tpu_torch.cli, libzl_tpu_torch.models.waveform\n"
-        "import libzl_tpu_torch.ops.thumbnail\n"
-        "import libzl_tpu_torch.utils.profiling\n"
+        "import importlib, pkgutil, sys\n"
+        "import libzl_tpu_torch\n"
+        "for m in pkgutil.walk_packages(libzl_tpu_torch.__path__,\n"
+        "                               'libzl_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "def loaded():\n"
+        "    return sorted(m for m in sys.modules\n"
+        "                  if m.split('.')[0] in ('jax', 'libzl_tpu'))\n"
+        "assert not loaded(), loaded()\n"
         "from libzl_tpu_torch.engine.engine import AudioEngine\n"
         "e = AudioEngine('cpu', num_voices=16, block_frames=128)\n"
         "assert e._lookahead == 16\n"
@@ -335,9 +356,9 @@ def test_port_never_imports_jax():
         "bridge.init_engine(num_voices=16, device='cpu', pump=False)\n"
         "bridge.timer_start(120)\n"
         "bridge._rt().step_blocks(40)\n"
+        "assert bridge._rt().engine.total_blocks == 40\n"
         "bridge.shutdown_engine()\n"
-        "mods = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
-        "assert not mods, mods\n"
+        "assert not loaded(), loaded()\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

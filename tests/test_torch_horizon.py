@@ -22,12 +22,12 @@ import pytest
 import torch
 
 from libzl_tpu.engine import render as ref_render
-from libzl_tpu.engine.commands import ClipCommand
-from libzl_tpu.io.wav import AudioData
-from libzl_tpu.models.clip import ClipAudioSource
 from libzl_tpu.ops import voice as ref_voice
 from libzl_tpu_torch.engine import render as tr
+from libzl_tpu_torch.engine.commands import ClipCommand
 from libzl_tpu_torch.engine.engine import AudioEngine
+from libzl_tpu_torch.io.wav import AudioData
+from libzl_tpu_torch.models.clip import ClipAudioSource
 from libzl_tpu_torch.ops import voice as tv
 
 SR = 48000

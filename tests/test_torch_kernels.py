@@ -174,6 +174,25 @@ def test_kernel_matches_plain_on_card(B, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V,B", [(7, 64), (33, 130), (5, 514), (9, 1000),
+                                 (3, 2048), (2, 4096)])
+def test_kernel_matches_plain_on_card_at_odd_shapes(V, B):
+    """The kernel's other launch shapes: fewer frames than a CTA row, one
+    frame a thread with a ragged edge, 4 frames a thread with B % 4 != 0
+    (scalar rows), a partial last voice group, and B split into 1024-frame
+    chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = tuple(t.cuda() for t in
+                 torch_args(*hostile_inputs(13, V, B, 1 << 16)))
+    got = fw.fetch_interp(*args)
+    want = fw.fetch_interp_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-6)
+    assert_out_of_range_zero(got.cpu().numpy(), args[1].cpu().numpy())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [128, 1024])
 def test_engine_on_card_matches_cpu(B):
     """A small session through AudioEngine on "cuda" (the windows kernel)

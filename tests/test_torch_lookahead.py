@@ -19,22 +19,25 @@ import numpy as np
 import pytest
 import torch
 
-from libzl_tpu.engine import hostcore as hostcore_mod
-from libzl_tpu.engine.commands import ClipCommand
+from libzl_tpu.engine import commands as ref_commands
 from libzl_tpu.engine.engine import AudioEngine as RefEngine
-from libzl_tpu.io.wav import AudioData
-from libzl_tpu.models.clip import ClipAudioSource
-from libzl_tpu.ops import voice as host_voice
+from libzl_tpu.io import wav as ref_wav
+from libzl_tpu.models import clip as ref_clip
 from libzl_tpu_torch.engine import engine as engine_mod
+from libzl_tpu_torch.engine import hostcore as hostcore_mod
+from libzl_tpu_torch.engine.commands import ClipCommand
 from libzl_tpu_torch.engine.engine import AudioEngine
+from libzl_tpu_torch.io.wav import AudioData
+from libzl_tpu_torch.models.clip import ClipAudioSource
 from libzl_tpu_torch.ops import fetch_windows as fw
+from libzl_tpu_torch.ops import voice as host_voice
 
 SR = 48000
 
 
-def _tone(seconds=0.5, freq=220.0):
+def _tone(seconds=0.5, freq=220.0, audio_data=AudioData):
     t = np.arange(int(SR * seconds)) / SR
-    return AudioData(
+    return audio_data(
         (0.4 * np.sin(2 * np.pi * freq * t)).astype(np.float32)[:, None], SR
     )
 
@@ -463,9 +466,14 @@ def test_random_traffic_differential(seed):
 
 
 def _build_random(cls, *args, voices=32, **kw):
+    """An engine with four clips, each engine with its own package's clip
+    and audio types."""
     eng = cls(*args, block_frames=128, num_voices=voices, **kw)
-    clips = [ClipAudioSource(eng, audio=_tone(0.08 + 0.11 * i,
-                                              150.0 + 90 * i))
+    ref = cls is RefEngine
+    clip_cls = ref_clip.ClipAudioSource if ref else ClipAudioSource
+    data_cls = ref_wav.AudioData if ref else AudioData
+    clips = [clip_cls(eng, audio=_tone(0.08 + 0.11 * i, 150.0 + 90 * i,
+                                       data_cls))
              for i in range(4)]
     eng.start_transport(bpm=120)
     return eng, clips
@@ -477,6 +485,8 @@ def _random_traffic(build, seed, blocks=110):
     (master [blocks, B, 2], voice_peaks [blocks, V], engine, voices in the
     densest lane per block)."""
     eng, clips = build()
+    command = (ref_commands.ClipCommand if isinstance(eng, RefEngine)
+               else ClipCommand)
     rng = np.random.default_rng(seed)
     outs, peaks, dens = [], [], []
     for _ in range(blocks):
@@ -484,7 +494,7 @@ def _random_traffic(build, seed, blocks=110):
         clip = clips[int(rng.integers(0, len(clips)))]
         ch = int(rng.integers(0, 10))
         if roll < 0.10:
-            cmd = ClipCommand.channel(clip.id, ch)
+            cmd = command.channel(clip.id, ch)
             cmd.midi_note = int(rng.integers(40, 80))
             cmd.start_playback = True
             # a start without change_volume is silent (volume 0.0, as in
@@ -495,7 +505,7 @@ def _random_traffic(build, seed, blocks=110):
             cmd.change_looping = cmd.looping
             eng.schedule_clip_command(cmd, int(rng.integers(0, 6)))
         elif roll < 0.14:
-            cmd = ClipCommand.channel(clip.id, ch)
+            cmd = command.channel(clip.id, ch)
             cmd.midi_note = int(rng.integers(40, 80))
             cmd.stop_playback = True
             eng.schedule_clip_command(cmd, int(rng.integers(0, 4)))
@@ -533,7 +543,8 @@ def test_default_engine_matches_reference_jax_under_random_traffic():
         seed)
     want, pk_want, ref, _ = _random_traffic(
         lambda: _build_random(RefEngine, voices=128, backend="jax",
-                              lookahead=8, fetch="gather"), seed)
+                              lookahead=8, fetch="gather",
+                              host_core="numpy"), seed)
     assert port._lookahead == ref._lookahead == 8
     assert port._bucket_ladder == ref._bucket_ladder == [64, 128]
     for b in range(len(got)):

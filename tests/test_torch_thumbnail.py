@@ -5,18 +5,20 @@ is bit-equal to libzl_tpu/ops/thumbnail.py: `thumbnail_batch` to
 `thumbnail_jit` (JAX on the CPU) and `thumbnail_region` to its numpy
 namesake, on batched, empty, short-window and mono inputs
 (tests/test_thumbnail.py:26-33 and its edge cases). The port's WaveFormItem
-gives the reference's envelopes and the same SVG.
+gives the reference's envelopes and the same SVG. These run on the CPU by
+asking for it; the entry points' default device is "cuda", which raises
+without a card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from libzl_tpu.io.wav import AudioData, write_wav
 from libzl_tpu.models.waveform import WaveFormItem as RefWaveFormItem
 from libzl_tpu.ops.thumbnail import thumbnail_jit
 from libzl_tpu.ops.thumbnail import thumbnail_math as ref_math
 from libzl_tpu.ops.thumbnail import thumbnail_region as ref_region
+from libzl_tpu_torch.io.wav import AudioData, write_wav
 from libzl_tpu_torch.models.waveform import WaveFormItem
 from libzl_tpu_torch.ops.thumbnail import (
     thumbnail_batch,
@@ -49,7 +51,7 @@ def test_thumbnail_bit_equal_to_jit(shape, buckets):
     x = np.random.default_rng(sum(shape)).standard_normal(shape).astype(
         np.float32)
     want = thumbnail_jit(x, num_buckets=buckets)
-    _eq(thumbnail_batch(x, buckets), want)
+    _eq(thumbnail_batch(x, buckets, device="cpu"), want)
     _eq(thumbnail_math(torch.from_numpy(x), buckets), ref_math(np, x, buckets))
 
 
@@ -59,7 +61,7 @@ def test_thumbnail_bit_equal_to_jit(shape, buckets):
 def test_thumbnail_region_bit_equal(window, mono):
     x = np.linspace(-1, 1, SR, dtype=np.float32)
     x = x if mono else np.stack([x, -0.5 * x], axis=1)
-    _eq(thumbnail_region(x, *window, SR, 128),
+    _eq(thumbnail_region(x, *window, SR, 128, device="cpu"),
         ref_region(x, *window, SR, 128))
 
 
@@ -74,7 +76,8 @@ def test_waveform_item_matches_reference(tmp_path):
     p = tmp_path / "w.wav"
     rng = np.random.default_rng(0)
     write_wav(p, rng.uniform(-0.5, 0.5, (4800, 2)).astype(np.float32), SR)
-    port, ref = WaveFormItem(num_buckets=64), RefWaveFormItem(num_buckets=64)
+    port = WaveFormItem(num_buckets=64, device="cpu")
+    ref = RefWaveFormItem(num_buckets=64)
     for item in (port, ref):
         item.set_source(str(p))
     assert port.length == ref.length == 0.1
@@ -90,7 +93,7 @@ def test_waveform_item_matches_reference(tmp_path):
 
 
 def test_waveform_item_cache_and_callbacks():
-    item = WaveFormItem(num_buckets=64)
+    item = WaveFormItem(num_buckets=64, device="cpu")
     repaints = []
     item.repaint_callback = lambda: repaints.append(1)
     x = np.linspace(-1, 1, SR, dtype=np.float32)[:, None]
@@ -104,5 +107,21 @@ def test_waveform_item_cache_and_callbacks():
         item.set_start(float(s))
         item.envelope()
     assert len(item._cache) <= 5
-    empty = WaveFormItem(num_buckets=32)
+    empty = WaveFormItem(num_buckets=32, device="cpu")
     assert empty.envelope()[0].shape == (32, 1)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: thumbnail_batch(np.zeros((2, 64, 2), np.float32), 8),
+    lambda: thumbnail_region(np.zeros((64, 2), np.float32), 0.0, 1.0, 64, 8),
+    lambda: thumbnail_region(np.zeros((64, 2), np.float32), 0.5, 0.1, 64, 8),
+    lambda: WaveFormItem(num_buckets=8),
+], ids=["batch", "region", "empty_region", "waveform_item"])
+def test_entry_points_default_to_cuda(entry):
+    """An array's thumbnail, a zoom window's and a WaveFormItem are reduced
+    on "cuda" unless the caller asks for the CPU: without a card the default
+    raises, as AudioEngine("cuda") does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        entry()
