@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (libzl_tpu_torch) end to end on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -11,7 +11,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 3. kernel      — the windows fetch kernel against its plain PyTorch version
    on the card, at (V, B) = (1024, 128) and (1024, 1024), f32 and int16
    banks, with engine-like and hostile positions (atol 2e-6 / 3e-6,
-   out-of-range lanes exactly 0);
+   out-of-range lanes exactly 0); each call prints how many voice chunks
+   the kernel stages in shared memory and how many exceed that budget and
+   read their taps directly, and the hostile calls must have both;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
@@ -63,14 +65,16 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    for 2 s of a looped clip: the WAV's peak must exceed 0.05.
 
 The line before the last holds the kernel record as JSON (its launches are
-those of phases 4, 6, 7 and 8, each counted from 0 around its run; its
-times and bound are those of the session's last per-block dispatch at
-B=1024); the last line is {"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}.
+those of phases 4, 6, 7 and 8, each counted from 0 around its run; `ms`,
+`plain_ms` and `bound_ms` are those of the fixed synthetic inputs named by
+its `inputs`, the `session_` keys those of the session's last per-block
+dispatch at B=1024); the last line is {"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -104,6 +108,9 @@ MIX_ATOL_PER_VOICE = 2e-6
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "libzl_tpu_torch/csrc/fetch_interp.cu"
 KERNEL_REPLACES = "libzl_tpu/ops/fetch_pallas.py:450"
+# the kernel record's timed inputs (phase 5's draws from seed 99)
+SYNTHETIC_INPUTS = (f"kernel_inputs engine-like, V={NUM_VOICES} "
+                    f"B={SUPER_BLOCK}, f32 bank, seed 99")
 
 
 class SmokeFailure(RuntimeError):
@@ -225,12 +232,12 @@ def phase_build() -> None:
 def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
                   device, r_max: float = 4.0):
     """Random bank, windows and window-relative positions for regions of
-    region_rows(B, r_max). Engine-like draws play each voice as the engine
-    does: region A up to a random wrap frame, then region B from its start,
-    each at one whole-sample pitch ratio up to r_max; hostile draws add
-    negative, past-the-end and region-edge positions (p = region-1 reads
-    region B's first sample at tap p+1; 2*region-2 is the last valid
-    position, 2*region-1 the first invalid one)."""
+    region_rows(B, r_max). Engine-like draws keep each voice's positions
+    inside its regions at one whole-sample pitch ratio up to r_max, each
+    frame in region A or B at random; hostile draws add negative,
+    past-the-end and region-edge positions (p = region-1 reads region B's
+    first sample at tap p+1; 2*region-2 is the last valid position,
+    2*region-1 the first invalid one)."""
     from libzl_tpu_torch.ops.fetch_windows import region_rows
 
     region = region_rows(B, r_max)
@@ -244,17 +251,17 @@ def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
     span = int(r_max * B) + 2
     base_a = rng.integers(0, region - span, V)[:, None]
     base_b = region + rng.integers(0, region - span, V)[:, None]
-    # whole-sample ratios 0..r_max per voice; region A before the wrap
-    # frame, region B from it on
+    # whole-sample ratios 0..r_max per voice
     step = rng.integers(0, int(r_max) + 1, (V, 1))
     frames = np.arange(B)[None, :]
-    wrap = rng.integers(0, B + 1, (V, 1))
-    pos = np.where(frames < wrap, base_a + frames * step,
-                   base_b + (frames - wrap) * step)
+    seg = rng.integers(0, 2, (V, B))
+    pos = np.where(seg == 0, base_a + frames * step, base_b + frames * step)
     if hostile:
-        # even voices play region A's run to its last sample (tap p+1 ==
-        # region reads region B's first sample), then region B from its
-        # start; odd voices get the hostile positions
+        # even voices play as the engine does, region A's run to its last
+        # sample (tap p+1 == region reads region B's first sample) up to a
+        # wrap frame, then region B from its start; odd voices get the
+        # hostile positions
+        wrap = rng.integers(0, B + 1, (V, 1))
         even = (np.arange(V) % 2 == 0)[:, None]
         end_a = region - 1 - np.maximum(wrap - 1, 0) * step
         pos = np.where(even & (frames < wrap), end_a + frames * step, pos)
@@ -271,6 +278,47 @@ def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
     alpha = rng.random((V, B)).astype(np.float32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (sound, pos, alpha, win_a, win_b))
+
+
+def stage_split(args, r_max: float = 4.0) -> tuple:
+    """(staged, direct, cap): how many (voice, frame chunk) items of one
+    kernel call stage their taps in shared memory and how many exceed the
+    budget of `cap` samples a channel and read their taps directly, by the
+    kernel's own plan (csrc/fetch_interp.cu: 1024-frame chunks at most, each
+    region's tap range aligned to 16 bytes)."""
+    from libzl_tpu_torch import _build
+    from libzl_tpu_torch.ops.fetch_windows import region_rows
+
+    sound, pos, _, win_a, win_b = (t.cpu().numpy() for t in args)
+    V, B = pos.shape
+    region = region_rows(B, r_max)
+    vec = 16 // sound.itemsize
+    cap = _build.load().zl_fetch_interp_stage_cap(
+        B, region, int(sound.dtype == np.int16))
+    chunk = min(-(-B // 128) * 128, 1024)
+    p = np.pad(pos.astype(np.int64), ((0, 0), (0, -B % chunk)),
+               constant_values=-1).reshape(V, -1, chunk)
+    ok = (p >= 0) & (p < 2 * region - 1)
+    in_a, in_b = ok & (p < region), ok & (p >= region)
+    cross = in_a & (p + 1 == region)  # tap p+1 is region B's first sample
+    top, bottom = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+
+    def run(lo, hi, base):  # staged samples of one region's tap range
+        has = lo <= hi
+        lo, hi = np.where(has, lo, 0), np.where(has, hi, 0)
+        start = (base + lo) & -vec
+        return np.where(has, (base + hi - start + vec) // vec * vec, 0)
+
+    na = run(np.where(in_a, p, top).min(-1),
+             np.where(in_a, np.minimum(p + 1, region - 1), bottom).max(-1),
+             win_a.astype(np.int64)[:, None] * 512)
+    nb = run(np.minimum(np.where(in_b, p, top).min(-1),
+                        np.where(cross, region, top).min(-1)),
+             np.maximum(np.where(in_b, p + 1, bottom).max(-1),
+                        np.where(cross, region, bottom).max(-1)),
+             win_b.astype(np.int64)[:, None] * 512 - region)
+    over = na + nb > cap
+    return int((~over).sum()), int(over.sum()), cap
 
 
 def phase_kernel(device) -> float:
@@ -293,13 +341,19 @@ def phase_kernel(device) -> float:
                 oor = got.permute(1, 0, 2)[:, out_of_range]
                 oor_max = float(oor.abs().max()) if oor.numel() else 0.0
                 tol = HOSTILE_ATOL if hostile else FETCH_ATOL
+                staged, direct, cap = stage_split(args)
                 print(f"kernel V={V} B={B} {str(dtype)[6:]} "
                       f"{'hostile' if hostile else 'engine '}: max_abs_err "
                       f"{err:.3e} (atol {tol:g}), out-of-range lanes "
-                      f"{int(out_of_range.sum())} max |out| {oor_max}")
+                      f"{int(out_of_range.sum())} max |out| {oor_max}; "
+                      f"voice chunks staged {staged}, over the "
+                      f"{cap}-sample budget (direct taps) {direct}")
                 check(bool(torch.isfinite(got).all()), "non-finite output")
                 check(err <= tol, f"kernel disagrees with plain: {err}")
                 check(oor_max == 0.0, "out-of-range lane is not exactly 0")
+                # both of the kernel's tap paths ran and were compared
+                check(staged > 0 and (direct > 0 or not hostile),
+                      f"staged {staged} / direct {direct} voice chunks")
                 worst = max(worst, err)
     torch.cuda.synchronize()
     return worst
@@ -501,32 +555,21 @@ def phase_default_engine(device) -> int:
     return total
 
 
-_FLUSH = []
-
-
-def _events_ms(fn, iters: int, primed: bool, dirty_l2: bool = True) -> list:
+def _events_ms(fn, iters: int, primed: bool) -> list:
     """Per-call ms over CUDA events, one event pair per call, with the 50 MB
     L2 flushed before each call (the render's other tensors evict the
-    bank's windows between fetches): by writing a 64 MB buffer, which
-    leaves the L2 full of modified lines as the render's preceding writes
-    do (`dirty_l2`, the rule of every PERF.md kernel time), or by reading
-    it, which leaves it clean. `primed` queues a ~2.5 ms device spin after
-    the flush, so the host enqueues the call (the plain version's ~20 ops
-    included) while the card is busy and the pair brackets device
-    execution only; unprimed, the pair also holds the host's launch
-    latency (the card idles while the host launches)."""
-    if not _FLUSH:
-        _FLUSH.append(torch.zeros(64 << 20, dtype=torch.uint8,
-                                  device="cuda"))
-    flush = _FLUSH[0]
+    bank's windows between fetches). `primed` queues a ~2.5 ms device spin
+    after the flush, so the host enqueues the call (the plain version's ~20
+    ops included) while the card is busy and the pair brackets device
+    execution only; unprimed, the pair also
+    holds the host's launch latency (the card idles while the host
+    launches)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        if dirty_l2:
-            flush.zero_()
-        else:
-            flush.max()
+        flush.zero_()
         if primed:
             torch.cuda._sleep(5_000_000)
         start.record()
@@ -632,7 +675,45 @@ def capture_fetch(engine) -> tuple:
     return calls[-1]
 
 
-def phase_timing(device, card: str) -> dict:
+def load_version(spec: str) -> tuple:
+    """`name=path.cu[,nvcc flag,...]`: another source with the windows
+    kernel's C entry points (a parent commit's copy, say), built with the
+    port's nvcc flags plus the given ones into build/libzl_tpu_torch/
+    versions/; returns (name, a function with fetch_interp's arguments that
+    launches it, counting nothing)."""
+    import ctypes
+
+    from libzl_tpu_torch import _build
+    from libzl_tpu_torch.ops.fetch_windows import region_rows
+
+    name, rest = spec.split("=", 1)
+    path, *flags = rest.split(",")
+    src = Path(path).resolve()
+    so = _build._hashed(f"fetch_{name}", [src], _build.NVCC_FLAGS + flags,
+                        _build.BUILD_DIR / "versions")
+    if not so.is_file():
+        nvcc = _build.find_nvcc()
+        _build._compile(lambda out: [nvcc, *_build.NVCC_FLAGS, *flags, "-o",
+                                     out, str(src)], so, f"nvcc {name}")
+    lib = _build.bind_fetch(ctypes.CDLL(str(so)))
+
+    def fetch(sound, pos, alpha, win_a, win_b, r_max: float = 4.0):
+        V, B = pos.shape
+        out = torch.empty((V, 2, B), dtype=torch.float32, device=sound.device)
+        fn = (lib.zl_fetch_interp_i16 if sound.dtype == torch.int16
+              else lib.zl_fetch_interp_f32)
+        code = fn(sound.data_ptr(), sound.shape[1], pos.data_ptr(),
+                  alpha.data_ptr(), win_a.data_ptr(), win_b.data_ptr(),
+                  out.data_ptr(), V, B, region_rows(B, r_max),
+                  torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, f"fetch version {name}")
+        return out
+
+    print(f"version {name}: {src}{' ' + ' '.join(flags) if flags else ''}")
+    return name, fetch
+
+
+def phase_timing(device, card: str, versions: dict) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
     from libzl_tpu_torch.ops import fetch_windows as fw
 
@@ -712,9 +793,10 @@ def phase_timing(device, card: str) -> dict:
 
     _default_timing(device, card, res)
 
-    # fetch kernel vs plain version at the main path's shapes, in turns, on
-    # synthetic engine-like inputs and on the session's last per-block
-    # dispatch; beside each, the bound from the call's own inputs
+    # fetch kernel vs plain version (and the --compare versions) at the main
+    # path's shapes, in turns, on synthetic engine-like inputs and on the
+    # session's last per-block dispatch; beside each, the bound from the
+    # call's own inputs
     rng = np.random.default_rng(99)
     for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
         cases = {
@@ -723,9 +805,15 @@ def phase_timing(device, card: str) -> dict:
             "session": session[B],
         }
         for label, (args, r_max) in cases.items():
-            fns = {"kernel": lambda: fw.fetch_interp(*args, r_max=r_max),
-                   "plain": lambda: fw.fetch_interp_plain(*args,
-                                                          r_max=r_max)}
+            fns = {"plain": lambda: fw.fetch_interp_plain(*args,
+                                                          r_max=r_max),
+                   "kernel": lambda: fw.fetch_interp(*args, r_max=r_max)}
+            want = fns["plain"]()
+            for name, fetch in versions.items():
+                fns[name] = lambda fetch=fetch: fetch(*args, r_max=r_max)
+                err = float((fns[name]() - want).abs().max())
+                check(err <= FETCH_ATOL,
+                      f"version {name} disagrees with plain: {err}")
             for f in fns.values():
                 for _ in range(5):
                     f()
@@ -734,20 +822,24 @@ def phase_timing(device, card: str) -> dict:
             res[f"bound_ms_{key}"] = bound["bound_ms"]
             res[f"bytes_{key}"] = bound["bytes"]
             res[f"bound_by_{key}"] = bound["bound_by"]
+            names = list(fns)
             for primed, tag in ((True, ""), (False, "call_")):
-                samples = {"kernel": [], "plain": []}
-                for name in ("plain", "kernel", "kernel", "plain"):
+                samples = {name: [] for name in names}
+                for name in names + names[::-1]:
                     samples[name] += _events_ms(fns[name], 25, primed)
-                k = float(np.median(samples["kernel"]))
-                p = float(np.median(samples["plain"]))
-                res[f"kernel_{tag}ms_{key}"] = k
-                res[f"plain_{tag}ms_{key}"] = p
+                ms = {name: float(np.median(samples[name]))
+                      for name in names}
+                for name in names:
+                    res[f"{name}_{tag}ms_{key}"] = ms[name]
                 what = ("device time" if primed
                         else "call time incl. host launch latency")
                 print(f"[{card}] fetch V={V} B={B} {label} "
                       f"({str(args[0].dtype)[6:]} bank, r_max {r_max:g}) "
-                      f"{what}: kernel {k:.4f} ms, plain {p:.4f} ms (p50 of "
-                      f"50 CUDA-event timings each, in turns)")
+                      f"{what}: "
+                      + ", ".join(f"{name} {ms[name]:.4f} ms"
+                                  for name in ["kernel", "plain",
+                                               *versions])
+                      + " (p50 of 50 CUDA-event timings each, in turns)")
             print(f"[{card}] fetch V={V} B={B} {label}: "
                   f"{bound['valid_frames']} valid frames, "
                   f"{bound['unique_taps']} unique taps, {bound['bytes']} "
@@ -756,7 +848,10 @@ def phase_timing(device, card: str) -> dict:
                   f"{100 * bound['bound_ms'] / res[f'kernel_ms_{key}']:.1f}% "
                   f"of its bound ("
                   f"{bound['bytes'] / 1e6 / res[f'kernel_ms_{key}']:.0f} "
-                  f"GB/s)")
+                  f"GB/s)"
+                  + "".join(f"; {name} {100 * bound['bound_ms'] / ms:.1f}%"
+                            for name in versions
+                            for ms in [res[f"{name}_ms_{key}"]]))
 
     # the ratio ladder's rungs: the kernel at region_rows(B, 2.0) against
     # region_rows(B, 4.0) on the SAME taps (pitch ratios <= 2; region B's
@@ -1181,6 +1276,13 @@ def phase_cli(device, wavs: list, tmp: str) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", action="append", default=[],
+                    metavar="NAME=PATH.cu[,FLAG...]",
+                    help="also time this source of the windows kernel in "
+                         "phase 5, in turns with the port's (e.g. a parent "
+                         "commit's copy); NAME is not kernel or plain")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on the GPU", file=sys.stderr)
@@ -1189,9 +1291,13 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_environment()
     phase_build()
+    versions = dict(load_version(spec) for spec in opts.compare)
+    check(not {"kernel", "plain"} & set(versions), "reserved version name")
     err = phase_kernel(device)
     launches = phase_slice(device)
-    timing = phase_timing(device, card)
+    timing = phase_timing(device, card, versions)
+    synthetic = f"{NUM_VOICES}x{SUPER_BLOCK}_synthetic"
+    session = f"{NUM_VOICES}x{SUPER_BLOCK}_session"
     launches += phase_default_engine(device)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1212,11 +1318,15 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": launches,
         "max_abs_err": err,
-        # the session's last per-block dispatch at B=1024
-        "ms": timing[f"kernel_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
-        "plain_ms": timing[f"plain_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
-        "bound_ms": timing[f"bound_ms_{NUM_VOICES}x{SUPER_BLOCK}_session"],
-        "bound_by": timing[f"bound_by_{NUM_VOICES}x{SUPER_BLOCK}_session"],
+        "inputs": SYNTHETIC_INPUTS,
+        "ms": timing[f"kernel_ms_{synthetic}"],
+        "plain_ms": timing[f"plain_ms_{synthetic}"],
+        "bound_ms": timing[f"bound_ms_{synthetic}"],
+        "bound_by": timing[f"bound_by_{synthetic}"],
+        # the same call on the session's last per-block dispatch at B=1024
+        "session_ms": timing[f"kernel_ms_{session}"],
+        "session_plain_ms": timing[f"plain_ms_{session}"],
+        "session_bound_ms": timing[f"bound_ms_{session}"],
         # no single PyTorch call computes this function: two regions, the
         # tap at p = region-1 crossing into region B, exact zeros outside
         # [0, 2*region-1) and the int16 dequantisation

@@ -36,8 +36,8 @@ NATIVE = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "libzl_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default home
 
-# -fmad stays at nvcc's default (true): the lerp's FMA contraction stays well
-# inside the fetch tolerance (atol 2e-6) against the plain version
+# -fmad stays at nvcc's default (true); the fetch kernel's lerp rounds each
+# product itself (__fmul_rn), so its tap paths agree to the bit
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -128,19 +128,27 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in ("zl_fetch_interp_f32", "zl_fetch_interp_i16"):
-            fn = getattr(lib, name)
-            # sound, n, pos_local, alpha, win_a, win_b, out, V, B, region,
-            # stream
-            fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                           ptr]
-            fn.restype = ctypes.c_int
-        lib.zl_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.zl_cuda_error_string.restype = ctypes.c_char_p
+        lib = bind_fetch(ctypes.CDLL(str(build())))
+        # B, region, int16 bank -> staged samples per channel and voice
+        lib.zl_fetch_interp_stage_cap.argtypes = [ctypes.c_int64,
+                                                  ctypes.c_int64,
+                                                  ctypes.c_int]
+        lib.zl_fetch_interp_stage_cap.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def bind_fetch(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the windows fetch's C entry points of a loaded library."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for name in ("zl_fetch_interp_f32", "zl_fetch_interp_i16"):
+        fn = getattr(lib, name)
+        # sound, n, pos_local, alpha, win_a, win_b, out, V, B, region, stream
+        fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    lib.zl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.zl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

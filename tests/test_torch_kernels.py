@@ -174,13 +174,13 @@ def test_kernel_matches_plain_on_card(B, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,B", [(7, 64), (33, 130), (5, 514), (9, 1000),
-                                 (3, 2048), (2, 4096)])
+@pytest.mark.parametrize("V,B", [(7, 64), (33, 130), (5, 384), (11, 480),
+                                 (5, 514), (9, 1000), (3, 2048), (2, 4096)])
 def test_kernel_matches_plain_on_card_at_odd_shapes(V, B):
-    """The kernel's other launch shapes: fewer frames than a CTA row, one
-    frame a thread with a ragged edge, 4 frames a thread with B % 4 != 0
-    (scalar rows), a partial last voice group, and B split into 1024-frame
-    chunks."""
+    """The kernel's other launch shapes: fewer frames than a CTA row, a
+    ragged B (scalar rows, no ring), a CTA row longer than B, voice groups
+    of 2 at 192 and 256 threads, a partial last voice group, and B split
+    into 1024-frame chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     args = tuple(t.cuda() for t in
