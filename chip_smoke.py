@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (libzl_tpu_torch) end to end on one NVIDIA GPU.
 
     python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
+    python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -62,10 +63,27 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 10. thumbnails  — thumbnail_batch of the 64 clips on "cuda", min/max
    bit-equal to the CPU, timed;
 11. CLI         — `python -m libzl_tpu_torch.cli render ... --device cuda`
-   for 2 s of a looped clip: the WAV's peak must exceed 0.05.
+   for 2 s of a looped clip: the WAV's peak must exceed 0.05;
+12. stretch     — the torch.fft vocoder (ops/stretch_torch) on "cuda": a 2 s
+   stereo clip at factors 0.5, 1.37 and 2.0 against the same call on "cpu"
+   (max abs error <= 1e-3 x the peak), each card run twice with the same
+   bits; a clip speed change through a "cuda" engine with
+   LIBZL_TPU_STRETCH=torch, waiting for the deferred re-render; ms of the
+   card vocoder beside the native WSOLA and the numpy vocoder on that clip;
+13. mesh        — the north-star session through AudioEngine("cuda:0",
+   mesh=make_mesh(devices=["cuda:0"] * k)) for k = 2 and 4, at B=1024 and
+   B=128, per-block (lookahead=0) and with the default options, every block
+   against the unsharded "cuda" engine of the same options (phase 4's
+   rule); the windows kernel's launches must equal the unsharded engine's
+   windows blocks plus k x each mesh engine's; each shard's kernel call (V/k
+   voices) bit-equal to the plain version; realtime factor and process_block
+   ms per k; across every card where there are two or more (per-block at
+   B=1024 and default at B=128, each card's kernel held to its plain version
+   on that card).
 
-The line before the last holds the kernel record as JSON (its launches are
-those of phases 4, 6, 7 and 8, each counted from 0 around its run; `ms`,
+Every phase prints its wall seconds. The line before the last holds the
+kernel record as JSON (its launches are
+those of phases 4, 6, 7, 8 and 13, each counted from 0 around its run; `ms`,
 `plain_ms` and `bound_ms` are those of the fixed synthetic inputs named by
 its `inputs`, the `session_` keys those of the session's last per-block
 dispatch at B=1024); the last line is {"ok": true, "device": {"platform":
@@ -373,7 +391,7 @@ def _check_block(og, oc, mix_atol: float, label: str, worst: dict) -> None:
                              ("lane_mix", mix_atol, MIX_RTOL),
                              ("master", mix_atol, MIX_RTOL)):
         a = getattr(og, name).cpu().numpy()
-        b = getattr(oc, name).numpy()
+        b = getattr(oc, name).cpu().numpy()
         check(a.shape == b.shape and np.isfinite(a).all(),
               f"{label}: {name} shape/finite")
         err = np.abs(a - b)
@@ -653,9 +671,9 @@ def fetch_bound(args, r_max: float = 4.0) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def capture_fetch(engine) -> tuple:
-    """One more block of `engine`; returns (args, r_max) of its windows
-    fetch call: the inputs of the session's last per-block dispatch."""
+def capture_fetches(engine) -> list:
+    """One more block of `engine`; returns (args, r_max) of each windows
+    fetch call it made (one per shard under a mesh)."""
     from libzl_tpu_torch.ops import voice
 
     calls = []
@@ -671,6 +689,13 @@ def capture_fetch(engine) -> tuple:
     finally:
         voice.fetch_interp = real
     torch.cuda.synchronize()
+    return calls
+
+
+def capture_fetch(engine) -> tuple:
+    """(args, r_max) of the windows fetch call of one more block of a
+    one-device per-block engine: the session's last per-block dispatch."""
+    calls = capture_fetches(engine)
     check(len(calls) == 1, f"{len(calls)} fetch calls in one block")
     return calls[-1]
 
@@ -1275,6 +1300,312 @@ def phase_cli(device, wavs: list, tmp: str) -> None:
     check(peak > 0.05, f"cli render silent (peak {peak})")
 
 
+# ------------------------------------------- the last modules (12-13)
+
+STRETCH_FACTORS = (0.5, 1.37, 2.0)
+STRETCH_RTOL_PEAK = 1e-3       # tests/test_torch_stretch.py
+
+
+def stretch_clip() -> np.ndarray:
+    """2 s of stereo: three partials a channel and a little noise (seed
+    5)."""
+    rng = np.random.default_rng(5)
+    t = np.arange(2 * SAMPLE_RATE) / SAMPLE_RATE
+    cols = []
+    for _ in range(2):
+        f = rng.uniform(80, 2000, 3)[:, None]
+        ph = rng.uniform(0, 2 * np.pi, 3)[:, None]
+        cols.append((0.2 * np.sin(2 * np.pi * f * t + ph)).sum(0)
+                    + 0.02 * rng.standard_normal(t.size))
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def _host_ms(fn, n: int = 5) -> float:
+    fn()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def phase_stretch(device, card: str) -> dict:
+    from libzl_tpu_torch.ops import resample, stretch_native
+    from libzl_tpu_torch.ops.stretch_torch import time_stretch_torch
+
+    x = stretch_clip()
+    res = {}
+    for f in STRETCH_FACTORS:
+        a = time_stretch_torch(x, f, device=device)
+        b = time_stretch_torch(x, f, device=device)
+        want = time_stretch_torch(x, f, device="cpu")
+        check(a.shape == want.shape == (int(round(x.shape[0] * f)), 2)
+              and np.isfinite(a).all(), f"stretch {f}: shape/finite")
+        check(np.array_equal(a, b), f"stretch {f}: card runs differ")
+        peak = float(np.abs(want).max())
+        err = float(np.abs(a - want).max())
+        check(err <= STRETCH_RTOL_PEAK * peak,
+              f"stretch {f}: card vs cpu {err:.3e} (peak {peak:.3f})")
+        ms = {"torch_cuda": _host_ms(
+            lambda: time_stretch_torch(x, f, device=device))}
+        ms["torch_cpu"] = _host_ms(
+            lambda: time_stretch_torch(x, f, device="cpu"), 2)
+        ms["numpy_vocoder"] = _host_ms(lambda: resample.time_stretch(x, f), 2)
+        if stretch_native.available():
+            ms["wsola"] = _host_ms(
+                lambda: stretch_native.time_stretch_wsola(x, f, SAMPLE_RATE))
+        res[f] = dict(err=err, peak=peak, ms=ms)
+        print(f"[{card}] stretch 2 s stereo x{f}: card vs cpu max err "
+              f"{err:.3e} (peak {peak:.3f}, limit {STRETCH_RTOL_PEAK:g} x "
+              f"peak), card runs bit-equal; ms (p50, host clock, numpy in "
+              f"and out): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+
+    # a clip's deferred re-render on its worker thread, through the card
+    from libzl_tpu_torch.engine.commands import ClipCommand
+    from libzl_tpu_torch.engine.engine import AudioEngine
+    from libzl_tpu_torch.io.wav import AudioData
+    from libzl_tpu_torch.models.clip import ClipAudioSource
+
+    with _env(LIBZL_TPU_STRETCH="torch", LIBZL_TPU_BACKEND=device):
+        eng = AudioEngine(device, sample_rate=SAMPLE_RATE, num_voices=8,
+                          lookahead=0)
+        clip = ClipAudioSource(eng, audio=AudioData(x, SAMPLE_RATE))
+        eng.start_transport(bpm=120)
+        changed = []
+        clip.playback_changed_callback = lambda: changed.append(True)
+        cmd = ClipCommand.channel(clip.id, 0)
+        cmd.midi_note = 60
+        cmd.change_speed = True
+        cmd.speed_ratio = 0.5
+        eng.schedule_clip_command(cmd, 0)
+        t0 = time.perf_counter()
+        while not changed and time.perf_counter() - t0 < 60:
+            eng.process_block()
+            time.sleep(0.005)
+        waited = time.perf_counter() - t0
+        check(bool(changed), "the deferred torch re-render never landed")
+        got = clip.playback_audio.samples
+        want = time_stretch_torch(x, 2.0, device=device)
+        check(np.array_equal(got, want),
+              "deferred re-render differs from the card vocoder")
+        clip.destroy()
+    print(f"[{card}] stretch: deferred re-render (speed 0.5) through a cuda "
+          f"engine with LIBZL_TPU_STRETCH=torch landed after {waited:.3f} s, "
+          f"{got.shape[0]} frames, bit-equal to the card vocoder")
+    torch.cuda.synchronize()
+    return res
+
+
+MESH_SHARDS = (2, 4)
+# (B, blocks): B=128 covers a horizon build and an adoption at H=16
+MESH_RUNS = ((SUPER_BLOCK, 12), (LIVE_BLOCK, 40))
+
+
+def mesh_engines(device, B: int, opts: dict, meshes: dict) -> dict:
+    """{k: engine} with the session built and warmed: k=1 the unsharded
+    engine on `device`, else an engine on meshes[k]."""
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    out = {}
+    for k, mesh in meshes.items():
+        dev = device if mesh is None else mesh.devices[0]
+        e = AudioEngine(dev, sample_rate=SAMPLE_RATE, block_frames=B,
+                        num_voices=NUM_VOICES, mesh=mesh, **opts)
+        build_session(e)
+        e.warmup()
+        out[k] = e
+    return out
+
+
+def drive_mesh(engines: dict, n: int, label: str) -> dict:
+    """Drive every engine `n` blocks in lockstep, each mesh engine held to
+    the unsharded one (engines[1]) every block under phase 4's rule."""
+    worst = {}
+    ref = engines[1]
+    for i in range(n):
+        before = _densest_lane(ref)
+        outs = {k: e.process_block().outputs for k, e in engines.items()}
+        mix_atol = MIX_ATOL_PER_VOICE * max(before, _densest_lane(ref), 1)
+        for k, o in outs.items():
+            if k != 1:
+                _check_block(o, outs[1], mix_atol, f"{label} k={k} block {i}",
+                             worst.setdefault(k, {}))
+    for e in engines.values():
+        e.drain_speculation()
+    return worst
+
+
+def time_mesh(e, n: int) -> dict:
+    """Realtime factor over `n` chained blocks (one sync at the end) and
+    the process_block p50 of those blocks."""
+    from libzl_tpu_torch.utils.profiling import BlockProfiler
+
+    e.profiler = BlockProfiler()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = e.process_block()
+    out.outputs.master.cpu()
+    wall = time.perf_counter() - t0
+    e.drain_speculation()
+    return {"rt": n * e.block_frames / SAMPLE_RATE / wall,
+            "ms_p50": e.profiler.summary()["process_block"]["p50_ms"]}
+
+
+def check_shard_kernels(engine, k: int) -> int:
+    """Each shard's windows fetch of one more block against the plain
+    version: bit-equal (phase 3's rule for the kernel). Returns the
+    per-shard voice count."""
+    from libzl_tpu_torch.ops import fetch_windows as fw
+
+    calls = capture_fetches(engine)
+    check(len(calls) == k, f"{len(calls)} fetch calls for {k} shards")
+    for args, r_max in calls:
+        check(torch.equal(fw.fetch_interp(*args, r_max=r_max),
+                          fw.fetch_interp_plain(*args, r_max=r_max)),
+              f"shard kernel at V={args[1].shape[0]} differs from plain")
+    return int(calls[0][0][1].shape[0])
+
+
+def phase_mesh(device, card: str) -> tuple:
+    from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.parallel.sharding import canonical_device, make_mesh
+
+    first = canonical_device(device)
+    meshes = {1: None}
+    meshes.update({k: make_mesh(devices=[first] * k) for k in MESH_SHARDS})
+    total, timing = 0, {}
+    for mode, opts in (("per-block", dict(lookahead=0)), ("default", {})):
+        for B, n in MESH_RUNS:
+            t0 = time.perf_counter()
+            engines = mesh_engines(first, B, opts, meshes)
+            for k, e in engines.items():
+                check(e.fetch == "windows", f"k={k}: fetch {e.fetch}")
+                e.fetch_dispatches = {"windows": 0, "gather": 0}
+            torch.cuda.synchronize()
+            fw.fetch_interp.launches = 0
+            worst = drive_mesh(engines, n, f"mesh {mode} B={B}")
+            torch.cuda.synchronize()
+            launches = fw.fetch_interp.launches
+            windows = {k: e.fetch_dispatches["windows"]
+                       for k, e in engines.items()}
+            gather = sum(e.fetch_dispatches["gather"]
+                         for e in engines.values())
+            expect = sum(k * w for k, w in windows.items())
+            check(gather == 0, "a mesh block fell back to the gather fetch")
+            check(launches == expect, f"kernel launched {launches} times, "
+                  f"expected shards x windows blocks = {expect}")
+            for k, e in engines.items():
+                check(e.stats()["spec_failures"] == 0,
+                      f"k={k}: speculative build failed: "
+                      f"{e.stats()['spec_last_failure']}")
+            total += launches
+            shard_v = {k: check_shard_kernels(engines[k], k)
+                       for k in MESH_SHARDS if not engines[k]._lookahead}
+            for k, e in engines.items():
+                timing[(mode, B, k)] = time_mesh(e, 20 if B == SUPER_BLOCK
+                                                 else 96)
+                if not e._lookahead:
+                    timing[(mode, B, k)].update(_device_profile(e, 10))
+            print(f"mesh {mode} B={B} H={engines[1]._lookahead}: {n} blocks; "
+                  + "; ".join(f"k={k} max err " + ", ".join(
+                      f"{a} {v:.3e}" for a, v in worst[k].items())
+                      for k in MESH_SHARDS)
+                  + f"; windows blocks {windows}, kernel launches {launches}"
+                  f" (= sum of k x blocks)"
+                  + (f"; shard kernels bit-equal to plain at V="
+                     f"{sorted(shard_v.values())}" if shard_v else "")
+                  + f" ({time.perf_counter() - t0:.1f} s)")
+            print(f"[{card}] mesh {mode} B={B}: "
+                  + "; ".join(f"k={k} realtime {t['rt']:.3f}x, process_block "
+                              f"p50 {t['ms_p50']:.4f} ms"
+                              + (f", device {t['device_ms']:.4f} ms and "
+                                 f"{t['kernels']:.0f} kernels a block"
+                                 if "device_ms" in t else "")
+                              for k in engines
+                              for t in [timing[(mode, B, k)]])
+                  + " (chained blocks, one sync at the end; device from "
+                  "torch.profiler over 10 more)")
+            del engines
+    if torch.cuda.device_count() >= 2:
+        total += phase_mesh_cards(card)
+    else:
+        print("mesh across cards: NOT RUN: one card")
+    torch.cuda.synchronize()
+    return total, {f"{m}_{b}_k{k}": v for (m, b, k), v in timing.items()}
+
+
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_mesh_cards(card: str) -> int:
+    """Phase 13 across every visible card (make_mesh(), two or more): the
+    session per-block at B=1024 and with the default options at B=128, each
+    block held to the unsharded engine on the first card under phase 4's
+    rule; launches equal to shards x windows blocks; each card's kernel call
+    bit-equal to the plain version on that card; realtime factor and
+    process_block ms per engine. Returns the kernel launches."""
+    from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.parallel.sharding import make_mesh
+
+    cards = make_mesh()
+    k = cards.size
+    check(k >= 2, f"mesh across cards needs two or more cards, has {k}")
+    total = 0
+    for mode, opts, B, n in (("per-block", dict(lookahead=0), SUPER_BLOCK, 8),
+                             ("default", {}, LIVE_BLOCK, 40)):
+        t0 = time.perf_counter()
+        engines = mesh_engines(cards.devices[0], B, opts, {1: None, k: cards})
+        for e in engines.values():
+            e.fetch_dispatches = {"windows": 0, "gather": 0}
+        sync_cards()
+        fw.fetch_interp.launches = 0
+        worst = drive_mesh(engines, n, f"mesh across {k} cards {mode} B={B}")
+        sync_cards()
+        launches = fw.fetch_interp.launches
+        windows = {kk: e.fetch_dispatches["windows"]
+                   for kk, e in engines.items()}
+        check(sum(e.fetch_dispatches["gather"] for e in engines.values())
+              == 0, "a block across cards fell back to the gather fetch")
+        check(launches == sum(kk * w for kk, w in windows.items()),
+              f"kernel launched {launches} times across cards, expected "
+              f"shards x windows blocks of {windows}")
+        for e in engines.values():
+            check(e.stats()["spec_failures"] == 0,
+                  f"speculative build failed across cards: "
+                  f"{e.stats()['spec_last_failure']}")
+        total += launches
+        shard_v = (check_shard_kernels(engines[k], k)
+                   if not engines[k]._lookahead else None)
+        timing = {kk: time_mesh(e, 20 if B == SUPER_BLOCK else 96)
+                  for kk, e in engines.items()}
+        sync_cards()
+        print(f"mesh across {k} cards ({', '.join(map(str, cards.devices))})"
+              f" {mode} B={B} H={engines[1]._lookahead}: {n} blocks; max err "
+              + ", ".join(f"{a} {v:.3e}" for a, v in worst[k].items())
+              + f"; windows blocks {windows}, kernel launches {launches} "
+              f"(= sum of k x blocks)"
+              + (f"; each card's kernel bit-equal to plain at V={shard_v}"
+                 if shard_v else "")
+              + f" ({time.perf_counter() - t0:.1f} s)")
+        print(f"[{card}] mesh across {k} cards {mode} B={B}: "
+              + "; ".join(f"k={kk} realtime {t['rt']:.3f}x, process_block "
+                          f"p50 {t['ms_p50']:.4f} ms"
+                          for kk, t in timing.items())
+              + " (chained blocks, one sync at the end)")
+        del engines
+    return total
+
+
+@contextlib.contextmanager
+def _phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
@@ -1282,6 +1613,9 @@ def main() -> int:
                     help="also time this source of the windows kernel in "
                          "phase 5, in turns with the port's (e.g. a parent "
                          "commit's copy); NAME is not kernel or plain")
+    ap.add_argument("--mesh-cards-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 13 across "
+                         "every visible card (needs two or more)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1289,26 +1623,50 @@ def main() -> int:
         return 2
     device = "cuda"
     t_start = time.perf_counter()
-    card = phase_environment()
-    phase_build()
-    versions = dict(load_version(spec) for spec in opts.compare)
+    with _phase("1 environment"):
+        card = phase_environment()
+    with _phase("2 build"):
+        phase_build()
+        versions = dict(load_version(spec) for spec in opts.compare)
+    if opts.mesh_cards_only:
+        with _phase("13 mesh across cards"):
+            launches = phase_mesh_cards(card)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"mesh_cards_launches": launches,
+                          "count": torch.cuda.device_count()}))
+        return 0
     check(not {"kernel", "plain"} & set(versions), "reserved version name")
-    err = phase_kernel(device)
-    launches = phase_slice(device)
-    timing = phase_timing(device, card, versions)
+    with _phase("3 kernel"):
+        err = phase_kernel(device)
+    with _phase("4 slice"):
+        launches = phase_slice(device)
+    with _phase("5 timing"):
+        timing = phase_timing(device, card, versions)
     synthetic = f"{NUM_VOICES}x{SUPER_BLOCK}_synthetic"
     session = f"{NUM_VOICES}x{SUPER_BLOCK}_session"
-    launches += phase_default_engine(device)
+    with _phase("6 default engine"):
+        launches += phase_default_engine(device)
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         wavs = write_session_wavs(tmp)
-        launches += phase_bridge(device, wavs, tmp)
-        launches += phase_pump(device, wavs, card)
-        phase_shim()
-        phase_thumbnails(device, card)
-        phase_cli(device, wavs, tmp)
-        print(f"phases 7-11: {time.perf_counter() - t0:.1f} s")
+        with _phase("7 bridge"):
+            launches += phase_bridge(device, wavs, tmp)
+        with _phase("8 pump"):
+            launches += phase_pump(device, wavs, card)
+        with _phase("9 shim"):
+            phase_shim()
+        with _phase("10 thumbnails"):
+            phase_thumbnails(device, card)
+        with _phase("11 CLI"):
+            phase_cli(device, wavs, tmp)
+    with _phase("12 stretch"):
+        stretch = phase_stretch(device, card)
+    with _phase("13 mesh"):
+        mesh_launches, mesh_timing = phase_mesh(device, card)
+    launches += mesh_launches
     print(f"timing: {json.dumps(timing)}")
+    print(f"stretch: {json.dumps(stretch)}")
+    print(f"mesh timing: {json.dumps(mesh_timing)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [{

@@ -39,7 +39,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import re
 import sys
 import threading
 import time
@@ -51,6 +50,7 @@ import numpy as np
 import torch
 
 from ..constants import BEAT_SUBDIVISIONS, TICKS_PER_BAR
+from ..device import device_from_env
 from ..engine.render import RenderOutputs
 from ..io.sinks import make_sink
 from ..io.sources import make_source
@@ -63,23 +63,6 @@ from ..utils.profiling import BlockProfiler
 _PROGRESS_CB = ctypes.CFUNCTYPE(None, ctypes.c_float)
 _LEVEL_CB = ctypes.CFUNCTYPE(None, ctypes.c_float)
 _TIMER_CB = ctypes.CFUNCTYPE(None, ctypes.c_int)
-
-BACKEND_ENV = "LIBZL_TPU_BACKEND"
-
-
-def device_from_env(default: str = "cuda") -> str:
-    """The runtime's device: LIBZL_TPU_BACKEND when set, else `default`.
-    Takes `cuda`, `cuda:N` or `cpu`; any other value raises a ValueError
-    naming the variable."""
-    raw = os.environ.get(BACKEND_ENV, "").strip()
-    if not raw:
-        return default
-    if raw in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", raw):
-        return raw
-    raise ValueError(
-        f"{BACKEND_ENV}={raw!r}: the PyTorch port takes cuda, cuda:N or cpu"
-    )
-
 
 def _set_realtime_priority() -> None:
     """Elevate the CALLING thread to SCHED_FIFO (the reference's RT tick

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.voice import fuse_packed, pack_strips
+from .ops.voice import pack_strips
 
 
 def quantize_bank(data: np.ndarray, bank_dtype: str) -> np.ndarray:
@@ -51,13 +51,6 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device, copy=True)
-
-
-def program_tensor(prog_i: np.ndarray, prog_f: np.ndarray,
-                   device) -> torch.Tensor:
-    """The packed program pair -> ONE int32 [V, Ki+Kf] device tensor (f32
-    columns bit-cast, ops/voice.fuse_packed), uploaded like `upload`."""
-    return upload(fuse_packed(prog_i, prog_f), device)
 
 
 def strips_tensor(strips, device) -> torch.Tensor:

@@ -2,7 +2,27 @@
 
 from __future__ import annotations
 
+import os
+import re
+
 import torch
+
+BACKEND_ENV = "LIBZL_TPU_BACKEND"
+
+
+def device_from_env(default: str = "cuda") -> str:
+    """The runtime's device: LIBZL_TPU_BACKEND when set, else `default`.
+    Takes `cuda`, `cuda:N` or `cpu`; any other value raises a ValueError
+    naming the variable. The C ABI runtime and the torch stretch both
+    resolve their device here."""
+    raw = os.environ.get(BACKEND_ENV, "").strip()
+    if not raw:
+        return default
+    if raw in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", raw):
+        return raw
+    raise ValueError(
+        f"{BACKEND_ENV}={raw!r}: the PyTorch port takes cuda, cuda:N or cpu"
+    )
 
 
 def resolve_device(device) -> torch.device:

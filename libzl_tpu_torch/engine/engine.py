@@ -8,14 +8,15 @@ host half as it is (clip admin, scheduling, transport, strips, the timer and
 clip command handlers, the tick walk and MIDI fabric of process_block, the
 session updates), on the port's own copies of the host modules, and replaces
 the device seam: the sound bank and strips as device tensors, one fused
-program upload per block, and the render through `render.render_block_fused`.
+program upload per block (per shard), and the render through
+`parallel/sharding.render_block_sharded`.
 
     BlockClock (musical time)      StepRing (scheduled events)
           │                              │
           └──> process_block(): drain due ticks -> commands -> VoicePool
                     │
                     ├─ lookahead horizon: emit a pre-rendered slice, or
-                    │   sim H blocks + ONE upload -> render_horizon_onebuf
+                    │   sim H blocks + ONE upload -> render_horizon_sharded
                     │   (speculative chain on two worker threads renders
                     │   the next horizon while this one is emitted)
                     ├─ per-block: native host core / VoicePool.build_program
@@ -24,8 +25,12 @@ program upload per block, and the render through `render.render_block_fused`.
 
 The reference's defaults are the port's: the lookahead horizon ("auto": H=16
 at B=128, H=2 at B=1024), bucketed prefix rendering and the ratio ladder.
-`mesh` (voice sharding) is rejected with a ValueError until its ROADMAP item
-lands.
+`mesh` (parallel/sharding.make_mesh) shards the voice axis over the mesh's
+devices from this one process, as the reference's single controller does:
+every per-block and horizon dispatch renders each shard's voices on its own
+device and sums the lane mixes on the first, which is the engine's device.
+Without a mesh the engine's one device is the mesh: one shard, the same
+dispatch.
 
 Two of the reference's faults are not carried over: the speculation depth
 (LIBZL_TPU_SPEC_DEPTH) is parsed at engine construction and a bad value
@@ -82,6 +87,7 @@ from ..ops.voice import (
     pack_program,
     pack_strips,
 )
+from ..parallel import sharding
 from ..timebase import BlockClock, next_bar_delay, schedule_ahead_ticks
 from ..utils.profiling import (
     BlockProfiler,
@@ -297,11 +303,6 @@ class AudioEngine:
         ratio_ladder: str = "auto",
         mesh=None,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh: voice sharding over torch.distributed is not ported "
-                "yet (ROADMAP Queue 1 item 2)"
-            )
         if voice_buckets not in ("auto", "off"):
             raise ValueError("voice_buckets must be 'auto' or 'off'")
         if ratio_ladder not in ("auto", "off"):
@@ -310,6 +311,25 @@ class AudioEngine:
         self._spec_depth = spec_depth_from_env()
         # explicit device: "cuda" without a card raises (device.py)
         self.device = resolve_device(device)
+        # the voice axis shards over the mesh (default: the engine's one
+        # device); the engine's device is the mesh's first, where the lane
+        # mixes are summed and the strip/meter tail runs (parallel/sharding.py)
+        if mesh is None:
+            mesh = sharding.Mesh((sharding.canonical_device(self.device),))
+        else:
+            if not isinstance(mesh, sharding.Mesh):
+                raise ValueError(
+                    f"mesh must be a libzl_tpu_torch.parallel.sharding.Mesh "
+                    f"(make_mesh), got {type(mesh).__name__}")
+            if num_voices % mesh.size != 0:
+                raise ValueError(
+                    f"num_voices ({num_voices}) must divide evenly over the "
+                    f"{mesh.size}-device mesh")
+            if sharding.canonical_device(self.device) != mesh.devices[0]:
+                raise ValueError(
+                    f"device {str(device)!r} is not the mesh's first device "
+                    f"{mesh.devices[0]}: the engine's outputs live there")
+        self.mesh = mesh
         self.sample_rate = sample_rate
         self.block_frames = block_frames
         self.quirk_gain = quirk_gain
@@ -415,16 +435,20 @@ class AudioEngine:
         # voice (lib/SamplerSynth.cpp:204-215), so live voices cluster at
         # low indices and a sparse session renders the smallest ladder
         # bucket covering the highest active index; voice_peaks pads back
-        # to the pool size. Inactive voices contribute nothing.
+        # to the pool size. Inactive voices contribute nothing. Each bucket
+        # splits evenly over the mesh: the ladder's unit is mesh.size * 8, so
+        # a sparse session renders a prefix of every shard.
         self._bucket_ladder = None
         if voice_buckets == "auto" and num_voices > 64:
+            unit = mesh.size * 8
             ladder = []
-            s = 64
+            s = ((64 + unit - 1) // unit) * unit
             while s < num_voices:
                 ladder.append(s)
                 s *= 2
-            ladder.append(num_voices)
-            self._bucket_ladder = ladder
+            if ladder:  # at least one size below the full pool
+                ladder.append(num_voices)
+                self._bucket_ladder = ladder
         self.allocator = VoiceAllocator(self.pool, voices_per_lane)
         # the region tail guard covers one block's fetch regions
         self.bank = SoundBank(
@@ -793,9 +817,10 @@ class AudioEngine:
     RUNG_MIN_SHARD_VOICES = 512
 
     def _allowed_rungs(self, bucket: Optional[int]) -> list:
-        """Rungs warmed and dispatched for this bucket size."""
+        """Rungs warmed and dispatched for this bucket size (judged by its
+        per-shard voice count)."""
         v = bucket if bucket is not None else self.pool.num_voices
-        if v >= self.RUNG_MIN_SHARD_VOICES:
+        if v // self.mesh.size >= self.RUNG_MIN_SHARD_VOICES:
             return self._ratio_ladder
         return self._ratio_ladder[-1:]
 
@@ -837,8 +862,8 @@ class AudioEngine:
 
     def _on_device(self):
         """The engine's CUDA device as the calling thread's current device
-        (it is per thread: the spec workers enter it too); a no-op on the
-        CPU."""
+        (it is per thread: the bridge's drain enters it); a no-op on the
+        CPU. The render enters each shard's device itself (sharding._on)."""
         if self.device.type == "cuda":
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
@@ -856,16 +881,16 @@ class AudioEngine:
             fetch, rmax, bucket = "gather", self.max_pitch_ratio, None
         V = self.pool.num_voices
         n = V if bucket is None else min(bucket, V)
-        # ONE host->device buffer per block (the bucket's prefix of the
-        # pool): the program pair fuses into a single int32 matrix (f32
-        # columns bit-cast), uploaded from pinned memory on CUDA so the
-        # host runs ahead of the card
-        fused = convert.program_tensor(prog_i[:n], prog_f[:n], self.device)
         self._count_fetch(self._fetch_kind(fetch), 1)
-        return render_mod.render_block_fused(
-            sound, fused, strips_packed,
-            block_frames=self.block_frames, quirk_gain=self.quirk_gain,
-            fetch=fetch, max_pitch_ratio=rmax, pad_voices_to=V,
+        # ONE host->device buffer per shard and block (its rows of the
+        # bucket's prefix of the pool): the program pair fuses into a single
+        # int32 matrix (f32 columns bit-cast), uploaded from pinned memory on
+        # CUDA so the host runs ahead of the card
+        return sharding.render_block_sharded(
+            self.mesh, sound, fuse_packed(prog_i[:n], prog_f[:n]),
+            strips_packed, block_frames=self.block_frames,
+            quirk_gain=self.quirk_gain, fetch=fetch, max_pitch_ratio=rmax,
+            pad_voices_to=V,
         )
 
     # ------------------------------------------------- lookahead horizon
@@ -1021,8 +1046,8 @@ class AudioEngine:
         one int32 buffer of base program and dynamics) and return a
         zero-argument closure that uploads it and enqueues the H slices'
         render, touching no engine state but the fetch count. The
-        speculative path runs the closure on the dispatch worker: it enters
-        the engine's device and launches on that thread's current stream
+        speculative path runs the closure on the dispatch worker: each shard
+        enters its own device and launches on that thread's current stream
         (the legacy default stream, the engine thread's too)."""
         H = self._lookahead
         B = self.block_frames
@@ -1047,14 +1072,14 @@ class AudioEngine:
             hz = hz[:bucket]
         kind = self._fetch_kind(fetch)
         quirk = self.quirk_gain
+        mesh = self.mesh
 
         def dispatch() -> list:
-            with self._on_device():
-                outs = render_mod.render_horizon_onebuf(
-                    sound, convert.upload(hz, self.device), strips,
-                    block_frames=B, slices=H, base_cols=K, quirk_gain=quirk,
-                    fetch=fetch, max_pitch_ratio=rmax, pad_voices_to=V,
-                )
+            outs = sharding.render_horizon_sharded(
+                mesh, sound, hz, strips, block_frames=B, slices=H,
+                base_cols=K, quirk_gain=quirk, fetch=fetch,
+                max_pitch_ratio=rmax, pad_voices_to=V,
+            )
             self._count_fetch(kind, H)
             return list(outs)
 
@@ -1266,33 +1291,40 @@ class AudioEngine:
         `bank.version` changes: planar [2, N] for the windows fetch (its
         regions are runs along the sample axis), interleaved [N, 2] for the
         gather fetch (one row index reads the stereo pair). An int16 bank
-        stays int16 on the device and dequantizes at the fetch."""
+        stays int16 on the device and dequantizes at the fetch. A dict
+        {device: tensor}, one copy on each distinct mesh device (any voice
+        may fetch any sample)."""
         if self._bank_version_on_device != self.bank.version:
             self._check_bank_capacity()
             layout = ("planar" if self.fetch.startswith("windows")
                       else "interleaved")
-            self._device_sound_data = None  # free the old copy first
-            self._device_sound_data = convert.sound_bank_tensor(
-                self.bank.data, self.device, self.bank_dtype, layout)
+            self._device_sound_data = None  # free the old copies first
+            self._device_sound_data = {
+                dev: convert.sound_bank_tensor(
+                    self.bank.data, dev, self.bank_dtype, layout)
+                for dev in self.mesh.distinct()
+            }
             self._bank_version_on_device = self.bank.version
         return self._device_sound_data
 
     def _check_bank_capacity(self) -> None:
-        """The bank must fit the card beside the render's working set: fail
-        loudly at upload time instead of running out of memory
-        mid-performance."""
-        if self.device.type != "cuda":
-            return
+        """The bank must fit each card that holds it beside the render's
+        working set: fail loudly at upload time instead of running out of
+        memory mid-performance."""
         itemsize = 2 if self.bank_dtype == "int16" else 4
         bank_bytes = self.bank.data.size * itemsize
-        _, total = torch.cuda.mem_get_info(self.device)
-        if bank_bytes > 0.6 * total:
-            raise RuntimeError(
-                f"sound bank ({bank_bytes / 2**30:.2f} GiB) exceeds 60% of "
-                f"device memory ({total / 2**30:.2f} GiB). Use "
-                f"bank_dtype='int16' (half the bytes), unload idle clips, or "
-                f"split the session across engines."
-            )
+        for dev in self.mesh.distinct():
+            if dev.type != "cuda":
+                continue
+            _, total = torch.cuda.mem_get_info(dev)
+            if bank_bytes > 0.6 * total:
+                raise RuntimeError(
+                    f"sound bank ({bank_bytes / 2**30:.2f} GiB, one copy per "
+                    f"device) exceeds 60% of the memory of {dev} "
+                    f"({total / 2**30:.2f} GiB). Use bank_dtype='int16' (half "
+                    f"the bytes), unload idle clips, or split the session "
+                    f"across engines."
+                )
 
     def _packed_strips_for_backend(self):
         """Strips change rarely (UI gestures): keep a device copy and
@@ -1360,20 +1392,19 @@ class AudioEngine:
             fetch = self.fetch
             if rmax is None:  # over-envelope gather fallback (full pool)
                 fetch, rmax = "gather", self.max_pitch_ratio
-            with self._on_device():
-                if kind == "block":
-                    return render_mod.render_block_fused(
-                        sound, convert.upload(fused[:s], self.device), strips,
-                        block_frames=self.block_frames,
-                        quirk_gain=self.quirk_gain, fetch=fetch,
-                        max_pitch_ratio=rmax, pad_voices_to=V,
-                    )
-                return render_mod.render_horizon_onebuf(
-                    sound, convert.upload(hz[:s], self.device), strips,
-                    block_frames=self.block_frames, slices=H,
-                    base_cols=fused.shape[1], quirk_gain=self.quirk_gain,
-                    fetch=fetch, max_pitch_ratio=rmax, pad_voices_to=V,
-                )[0]
+            if kind == "block":
+                return sharding.render_block_sharded(
+                    self.mesh, sound, fused[:s], strips,
+                    block_frames=self.block_frames,
+                    quirk_gain=self.quirk_gain, fetch=fetch,
+                    max_pitch_ratio=rmax, pad_voices_to=V,
+                )
+            return sharding.render_horizon_sharded(
+                self.mesh, sound, hz[:s], strips,
+                block_frames=self.block_frames, slices=H,
+                base_cols=fused.shape[1], quirk_gain=self.quirk_gain,
+                fetch=fetch, max_pitch_ratio=rmax, pad_voices_to=V,
+            )[0]
 
         work = []
         for s in self._bucket_ladder or [V]:
@@ -1720,6 +1751,10 @@ class AudioEngine:
             self.levels.feed_recorders(render_mod.RenderOutputs(
                 *(t.cpu().numpy() for t in result.outputs)))
         peaks = fetched["voice_peaks"]
+        if peaks.shape[0] < self.pool.num_voices:
+            # bucket-length peaks (the reference's mesh dispatch returns
+            # them unpadded); inactive tail voices peaked at zero
+            peaks = np.pad(peaks, (0, self.pool.num_voices - peaks.shape[0]))
         progress = self.pool.progress()
         act = np.flatnonzero(self.pool.active)
         if act.size:

@@ -23,10 +23,11 @@ the audio path, and the result is device-uploaded once. A jax.signal STFT
 variant can replace the core later without changing callers.
 
 A copy of libzl_tpu/ops/resample.py, verbatim apart from this note and the
-'jax' stretch backend: the accelerator-resident vocoder is not ported yet
-(ROADMAP Queue 1 item 1, the torch stretch), so asking for it raises
-NotImplementedError instead of falling back. The port keeps its own copy so
-that it imports nothing of the JAX package.
+accelerator stretch backend: 'torch' (and 'jax', the reference's name for
+it) resolves to "torch", and `stretch` runs ops/stretch_torch on the device
+that LIBZL_TPU_BACKEND names (device.device_from_env: cuda by default, and
+cuda without a card raises rather than falling back to a host vocoder). The
+port keeps its own copy so that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -267,9 +268,10 @@ def time_stretch(
 def resolve_stretch_backend(backend: str = "auto") -> str:
     """Resolve the stretch backend: 'wsola' (native/zl_stretch.cpp, the
     reference's SoundTouch-class algorithm), 'vocoder' (the numpy phase
-    vocoder above) or 'jax' (the accelerator-resident vocoder,
-    ops/stretch_jax.py — deferred re-renders stop contending with the
-    block pump for the host core). An explicit `backend` wins;
+    vocoder above) or 'torch' (the accelerator vocoder,
+    ops/stretch_torch.py — deferred re-renders stop contending with the
+    block pump for the host core; 'jax', the reference's name for its
+    accelerator vocoder, resolves to it too). An explicit `backend` wins;
     LIBZL_TPU_STRETCH overrides only the 'auto' default, which picks the
     native WSOLA when the library builds, else the vocoder. Requesting
     'wsola' explicitly on a host where it cannot build raises instead of
@@ -291,18 +293,14 @@ def resolve_stretch_backend(backend: str = "auto") -> str:
         return "wsola"
     if choice in ("vocoder", "pv", "python"):
         return "vocoder"
-    if choice == "jax":
-        raise NotImplementedError(
-            "stretch backend 'jax' (the accelerator-resident vocoder) is not "
-            "ported to libzl_tpu_torch yet: ROADMAP Queue 1 item 1, the "
-            "torch stretch; use 'auto', 'wsola' or 'vocoder'"
-        )
+    if choice in ("torch", "jax"):
+        return "torch"
     if choice != "auto":
         # a typo'd explicit request must fail loudly, not silently run the
         # auto default (A/B probes would measure the wrong stretcher)
         raise ValueError(
             f"unknown stretch backend {choice!r}: use 'auto', 'wsola', "
-            f"'vocoder' or 'jax'"
+            f"'vocoder', 'torch' or 'jax'"
         )
     return "wsola" if stretch_native.available() else "vocoder"
 
@@ -322,6 +320,11 @@ def stretch(
         from . import stretch_native
 
         return stretch_native.time_stretch_wsola(samples, factor, sample_rate)
+    if resolved == "torch":
+        from ..device import device_from_env
+        from .stretch_torch import time_stretch_torch
+
+        return time_stretch_torch(samples, factor, device=device_from_env())
     return time_stretch(samples, factor)
 
 

@@ -14,12 +14,12 @@ active pitch ratio: the same taps, so the same output as the top rung.
 import numpy as np
 import pytest
 
-from libzl_tpu_torch.engine import render as render_mod
 from libzl_tpu_torch.engine.commands import ClipCommand
 from libzl_tpu_torch.engine.engine import AudioEngine
 from libzl_tpu_torch.io.wav import AudioData
 from libzl_tpu_torch.models.clip import ClipAudioSource
 from libzl_tpu_torch.ops.voice import pack_program
+from libzl_tpu_torch.parallel import sharding
 
 SR = 48000
 FIELDS = ("master", "lane_mix", "strip_dry", "strip_wet1", "strip_wet2",
@@ -106,13 +106,13 @@ def test_prefix_dispatch_uploads_the_bucket_only(monkeypatch):
     voice_peaks back to the pool size."""
     eng, clip = _make_engine()
     rows = []
-    orig = render_mod.render_block_fused
+    orig = sharding.render_block_sharded
 
-    def spy(sound, fused, strips, **kw):
+    def spy(mesh, sound, fused, strips, **kw):
         rows.append((fused.shape[0], kw["pad_voices_to"]))
-        return orig(sound, fused, strips, **kw)
+        return orig(mesh, sound, fused, strips, **kw)
 
-    monkeypatch.setattr(render_mod, "render_block_fused", spy)
+    monkeypatch.setattr(sharding, "render_block_sharded", spy)
     _cmd(eng, clip, 60)
     res = eng.process_block()
     assert rows == [(64, 128)]

@@ -188,8 +188,10 @@ def test_windows_fetch_engine_on_cpu(B):
     for b, (g, w) in enumerate(zip(got, want)):
         for gi, wi in zip(g, w):
             np.testing.assert_allclose(gi, wi, atol=2e-6, err_msg=f"block {b}")
-    assert windows._sound_data_for_backend().shape[0] == 2      # planar
-    assert gather._sound_data_for_backend().shape[1] == 2       # interleaved
+    assert windows._sound_data_for_backend()[
+        windows.mesh.devices[0]].shape[0] == 2                  # planar
+    assert gather._sound_data_for_backend()[
+        gather.mesh.devices[0]].shape[1] == 2                   # interleaved
     assert windows.fetch_dispatches["gather"] == 0
     assert windows.fetch_dispatches["windows"] == \
         gather.fetch_dispatches["gather"] > 0
@@ -228,7 +230,8 @@ def test_int16_bank_matches_reference():
                     backend="numpy", bank_dtype="int16", **REF_HOST)
     got, _ = run_script(port, B)
     want, _ = run_script(ref, B)
-    assert port._sound_data_for_backend().dtype == torch.int16
+    assert port._sound_data_for_backend()[
+        port.mesh.devices[0]].dtype == torch.int16
     assert_blocks_close(got, want, "int16")
 
 
@@ -257,7 +260,8 @@ def test_convert_matches_reference_state():
         samples_per_tick=ref.clock.samples_per_tick)
     pi, pf = pack_program(prog)
     np.testing.assert_array_equal(
-        convert.program_tensor(pi, pf, "cpu").numpy(), fuse_packed(pi, pf))
+        convert.upload(fuse_packed(pi, pf), "cpu").numpy(),
+        fuse_packed(pi, pf))
     np.testing.assert_array_equal(
         convert.strips_tensor(ref.strips, "cpu").numpy(),
         pack_strips(ref.strips))
@@ -272,7 +276,9 @@ def test_cuda_device_without_a_card_raises():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_are_rejected(kw):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """A mesh is the port's own (parallel/sharding.Mesh): anything else, a
+    jax Mesh included, is rejected at construction."""
+    with pytest.raises(ValueError, match="make_mesh"):
         AudioEngine("cpu", num_voices=8, **kw)
 
 
@@ -322,6 +328,24 @@ def test_bad_options_are_rejected():
         AudioEngine("cpu", num_voices=8, bank_dtype="float16")
     with pytest.raises(ValueError):
         AudioEngine("meta", num_voices=8)
+
+
+def test_lazy_top_level_api():
+    """The reference's six lazy top-level names (libzl_tpu/__init__.py),
+    each from the port's own module."""
+    import libzl_tpu_torch
+    from libzl_tpu_torch.models import session
+    from libzl_tpu_torch.models.waveform import WaveFormItem
+    from libzl_tpu_torch.parallel import sharding
+
+    assert libzl_tpu_torch.AudioEngine is AudioEngine
+    assert libzl_tpu_torch.ClipAudioSource is port_clip.ClipAudioSource
+    assert libzl_tpu_torch.WaveFormItem is WaveFormItem
+    assert libzl_tpu_torch.save_session is session.save_session
+    assert libzl_tpu_torch.load_session is session.load_session
+    assert libzl_tpu_torch.make_mesh is sharding.make_mesh
+    with pytest.raises(AttributeError):
+        libzl_tpu_torch.render_everything
 
 
 def test_port_never_imports_jax():

@@ -154,7 +154,8 @@ def test_unpack_horizon_slice_rebuilds_active_rows(B, H):
 
 def _inputs(B, H, fetch):
     eng, packed, dyn = horizon_fixture(B, H)
-    sound = eng._sound_data_for_backend() if fetch == "gather" else \
+    sound = eng._sound_data_for_backend()[eng.mesh.devices[0]] \
+        if fetch == "gather" else \
         torch.from_numpy(eng.bank.data.copy())
     strips = ref_voice.pack_strips(eng.strips)
     strips[3, 2] = -0.4                 # a panned channel strip

@@ -54,7 +54,7 @@ VERBATIM = [
     "midi/translations.py", "midi/devices.py", "midi/router.py",
     "midi/transport.py", "models/positions.py", "models/fader.py",
     "models/sampler_map.py", "models/audio_levels.py", "models/clip.py",
-    "ops/stretch_native.py", "io/wav.py", "io/flac.py", "io/codecs.py",
+    "models/session.py", "ops/stretch_native.py", "io/wav.py", "io/flac.py", "io/codecs.py",
     "io/alsa.py", "io/sinks.py", "io/sources.py",
 ]
 
@@ -79,6 +79,37 @@ def test_copy_is_the_reference_source(rel):
         REPO / "libzl_tpu" / rel)
     assert f"A copy of libzl_tpu/{rel}" in ast.get_docstring(
         ast.parse(port.read_text())).replace("\n", " ")
+
+
+def _top_level(path: Path) -> dict:
+    """name -> dumped source (docstrings aside) of each top-level function
+    and statement of a module, the module docstring left out."""
+    tree = ast.parse(path.read_text())
+    out = {}
+    for i, node in enumerate(tree.body[1:], 1):
+        name = getattr(node, "name", f"stmt{i}")
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body[0] = ast.Pass()
+        out[name] = ast.dump(node)
+    return out
+
+
+def test_resample_copy_differs_only_in_the_stretch_dispatch():
+    """ops/resample.py is the reference's but for the accelerator backend:
+    `resolve_stretch_backend` maps 'torch' and 'jax' to the torch vocoder
+    and `stretch` runs it; every other function is the reference's source."""
+    rel = "ops/resample.py"
+    port = _top_level(REPO / "libzl_tpu_torch" / rel)
+    ref = _top_level(REPO / "libzl_tpu" / rel)
+    assert port.keys() == ref.keys()
+    changed = sorted(k for k in ref if port[k] != ref[k])
+    assert changed == ["resolve_stretch_backend", "stretch"]
+    assert "A copy of libzl_tpu/ops/resample.py" in ast.get_docstring(
+        ast.parse((REPO / "libzl_tpu_torch" / rel).read_text())).replace(
+            "\n", " ")
 
 
 # ------------------------------------------------- voice pool + host core

@@ -37,6 +37,17 @@ def test_no_libzl_tpu_import(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+def test_the_scan_covers_the_whole_port():
+    """The port's later modules are scanned too: sharding, the examples,
+    the torch stretch and the session copy."""
+    for rel in ("libzl_tpu_torch/parallel/sharding.py",
+                "libzl_tpu_torch/examples/multichip_demo.py",
+                "libzl_tpu_torch/examples/groovebox_demo.py",
+                "libzl_tpu_torch/ops/stretch_torch.py",
+                "libzl_tpu_torch/models/session.py"):
+        assert rel in FILES, rel
+
+
 def test_the_scan_sees_every_import_form():
     src = ("import libzl_tpu\n"
            "import os, libzl_tpu.io.wav as w\n"

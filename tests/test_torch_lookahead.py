@@ -382,19 +382,19 @@ def test_spec_dispatch_failure_is_counted_and_falls_back(monkeypatch):
     synchronous horizon (the reference's semantics, so the audio is still
     bit-equal to per-block) and is counted, with its traceback, in
     stats() — the reference drops it silently."""
-    from libzl_tpu_torch.engine import render as render_mod
+    from libzl_tpu_torch.parallel import sharding
 
-    orig = render_mod.render_horizon_onebuf
+    orig = sharding.render_horizon_sharded
 
     def flaky(*a, **k):
         if threading.current_thread() is not threading.main_thread():
             raise RuntimeError("launch failed on the dispatch thread")
         return orig(*a, **k)
 
-    monkeypatch.setattr(render_mod, "render_horizon_onebuf", flaky)
+    monkeypatch.setattr(sharding, "render_horizon_sharded", flaky)
     script = {0: lambda e, c: _play(e, c)}
     on, pk_on, eng = _run_script("auto", script, blocks=40)
-    monkeypatch.setattr(render_mod, "render_horizon_onebuf", orig)
+    monkeypatch.setattr(sharding, "render_horizon_sharded", orig)
     off, pk_off, _ = _run_script(0, script, blocks=40)
     np.testing.assert_array_equal(on, off)
     np.testing.assert_array_equal(pk_on, pk_off)
