@@ -2,27 +2,33 @@
 """Drive the PyTorch/CUDA port (libzl_tpu_torch) end to end on one NVIDIA GPU.
 
     python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
+                          [--soak-seconds S] [--soak-event-seconds S]
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
 1. environment — torch/CUDA/nvcc versions, the card's name and power limit;
    no CUDA device means exit 2 (this script never runs on the CPU);
-2. build       — nvcc builds libzl_tpu_torch/csrc/*.cu for sm_90a;
+2. build       — nvcc builds libzl_tpu_torch/csrc/*.cu for sm_90a, one
+   process a source, all at once;
 3. kernel      — the windows fetch kernel against its plain PyTorch version
    on the card, at (V, B) = (1024, 128) and (1024, 1024), f32 and int16
    banks, with engine-like and hostile positions (atol 2e-6 / 3e-6,
    out-of-range lanes exactly 0); each call prints how many voice chunks
    the kernel stages in shared memory and how many exceed that budget and
-   read their taps directly, and the hostile calls must have both;
+   read their taps directly, and the hostile calls must have both; the
+   lane mixdown kernel against its plain version, torch.equal, at (V, B) =
+   (1024, 128) and (1024, 1024), a stacked H=16 horizon at B=128, lanes
+   outside [0, 12) and a non-zero init;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
    "cuda" (fetch resolves to the windows kernel) and on "cpu" (the plain
    gather path): 8 superblocks (B=1024), then 16 live blocks (B=128),
    every block compared (voice_peaks atol 2e-6; lane_mix and master rtol
-   1e-5, atol 2e-6 x voices in the densest lane); the kernel's launch count
-   must equal the dispatched blocks, and no block may fall back to gather;
+   1e-5, atol 2e-6 x voices in the densest lane); the fetch kernel's launch
+   count must equal the dispatched blocks, the mixdown kernel's the
+   engines' renders, and no block may fall back to gather;
 5. timing      — per-block engine: superblock realtime factor, live-block
    ms, host program and dispatch ms, a torch.profiler pass per geometry
    (device ms and kernels per block, device busy share); default engine:
@@ -34,6 +40,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    need at 3.35 TB/s, unique taps counted once) and the share of it
    reached, and the kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA
    events: device time, and call time with the host's launch latency);
+   the mixdown kernel, its plain version and the one-hot torch.matmul it
+   replaces on the session's last per-block contributions at B=1024 and
+   B=128 and on a stacked H=16 horizon at B=128, each beside its bound;
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -41,9 +50,10 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    a set_strip, mid-horizon) rebuilt in their event block; every block is
    compared with a "cpu" engine at lookahead=0 (the rule of phase 4) and
    with a "cuda" engine at lookahead=0 with the same buckets (max
-   difference printed); the kernel's launches must equal the horizon
-   slices and per-block blocks rendered with the windows fetch, no gather
-   fallback, no failed speculative build;
+   difference printed); the fetch kernel's launches must equal the horizon
+   slices and per-block blocks rendered with the windows fetch, the
+   mixdown kernel's the horizons and per-block blocks dispatched, no
+   gather fallback, no failed speculative build;
 7. bridge       — the C ABI bridge (libzl_tpu_torch.capi.bridge) in process
    with LIBZL_TPU_NO_PUMP=1, 1024 voices, B=128: the 64 clips written as
    WAVs and loaded by clip_new, clip_play and timer_start, an in-memory
@@ -51,11 +61,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    with a `lane:2` port recording added; on "cuda" with the bounce drain at
    its default (32) and at 1, and on "cpu". The two "cuda" sink streams are
    bit-equal; both, and the lane recording, agree with "cpu" (phase 4's
-   rule); the kernel's launches equal the engines' windows dispatches;
+   rule); the kernels' launches equal the engines' windows dispatches and
+   renders;
 8. pump         — the wall-clock pump on "cuda" for 5 s with a null sink and
    per-block delivery, the session loaded while it runs: no pump error, no
    failed speculative build; blocks rendered against block periods,
    phase_stats, SLO misses per kind and the per-block copy wait printed;
+   the kernels' launches, counted from a drained engine held at the
+   runtime lock, equal its windows dispatches and renders;
 9. shim         — the port's libzl.so (native/libzl_shim.cpp built over the
    port's bridge) driven by libzl_tpu_torch.capi.abi_client in a subprocess
    on "cuda" at the ABI defaults: it must print CAPI-OK device=cuda (where
@@ -73,21 +86,35 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 13. mesh        — the north-star session through AudioEngine("cuda:0",
    mesh=make_mesh(devices=["cuda:0"] * k)) for k = 2 and 4, at B=1024 and
    B=128, per-block (lookahead=0) and with the default options, every block
-   against the unsharded "cuda" engine of the same options (phase 4's
-   rule); the windows kernel's launches must equal the unsharded engine's
-   windows blocks plus k x each mesh engine's; each shard's kernel call (V/k
-   voices) bit-equal to the plain version; realtime factor and process_block
-   ms per k; across every card where there are two or more (per-block at
-   B=1024 and default at B=128, each card's kernel held to its plain version
-   on that card).
+   against the unsharded "cuda" engine of the same options: master,
+   lane_mix, lane_peaks, lane_rms and voice_peaks bit-equal (the carried
+   in-order lane mixdown); the windows kernel's launches must equal the
+   unsharded engine's windows blocks plus k x each mesh engine's, the
+   mixdown kernel's k x each engine's renders; each shard's fetch call (V/k
+   voices) bit-equal to the plain version; realtime factor, process_block
+   ms, device ms and kernels a block per k; across every card where there
+   are two or more (per-block at B=1024 and default at B=128, the same
+   checks, each card's fetch held to its plain version on that card);
+14. soak        — the C ABI bridge on "cuda" with its wall-clock pump, 1024
+   voices, B=128, a file sink: four sine WAVs by clip_new, played looped,
+   global playback recorded to a file, a random clip retriggered every
+   --soak-event-seconds for --soak-seconds (tools/tpu_soak_r3.py's run);
+   its counters on one line; fails on a pump error, a failed speculative
+   build, a watchdog mismatch or lost event, a non-finite, silent or short
+   recording (under 0.95 x the recorded blocks); deadline misses and
+   sustained realtime are printed, not held; the kernels' launches equal
+   the engine's dispatches; then live_rig and midi_live_demo
+   (libzl_tpu_torch/examples) on "cuda" for 1 s each: "live rig OK", a
+   WAV peak above 0.005.
 
 Every phase prints its wall seconds. The line before the last holds the
-kernel record as JSON (its launches are
-those of phases 4, 6, 7, 8 and 13, each counted from 0 around its run; `ms`,
-`plain_ms` and `bound_ms` are those of the fixed synthetic inputs named by
-its `inputs`, the `session_` keys those of the session's last per-block
-dispatch at B=1024); the last line is {"ok": true, "device": {"platform":
-"gpu", "kind": ..., "count": ...}}.
+kernels' record as JSON, one entry a kernel (its launches are those of
+phases 4, 6, 7, 8, 13 and 14, each counted from 0 around its run; `ms`,
+`plain_ms`, `bound_ms` and `library_ms` are those of the inputs named by its
+`inputs`: for the fetch fixed synthetic inputs, with its `session_` keys
+those of the session's last per-block dispatch at B=1024; for the mixdown
+that dispatch's contributions); the last line is {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -129,6 +156,11 @@ KERNEL_REPLACES = "libzl_tpu/ops/fetch_pallas.py:450"
 # the kernel record's timed inputs (phase 5's draws from seed 99)
 SYNTHETIC_INPUTS = (f"kernel_inputs engine-like, V={NUM_VOICES} "
                     f"B={SUPER_BLOCK}, f32 bank, seed 99")
+MIXDOWN_SOURCE = "libzl_tpu_torch/csrc/lane_mixdown.cu"
+# an XLA dot_general of a one-hot [12, V] by [V, 2B], not a Pallas kernel
+MIXDOWN_REPLACES = "libzl_tpu/ops/voice.py:687"
+MIXDOWN_INPUTS = (f"the north-star session's last per-block contributions, "
+                  f"V={NUM_VOICES} B={SUPER_BLOCK}")
 
 
 class SmokeFailure(RuntimeError):
@@ -138,6 +170,53 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def reset_launches() -> None:
+    """Zero both kernels' launch counts."""
+    from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.ops import mixdown as md
+
+    fw.fetch_interp.launches = 0
+    md.lane_mixdown.launches = 0
+
+
+def read_launches() -> dict:
+    from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.ops import mixdown as md
+
+    return {"fetch_interp": fw.fetch_interp.launches,
+            "lane_mixdown": md.lane_mixdown.launches}
+
+
+def add_launches(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def renders(engines) -> int:
+    """The lane mixdowns the engines' renders launch: one a shard for each
+    per-block and each horizon dispatch."""
+    return sum(e.mesh.size * sum(e.render_dispatches.values())
+               for e in engines)
+
+
+def reset_counts(engines) -> None:
+    """Zero the engines' dispatch counts."""
+    for e in engines:
+        e.fetch_dispatches = {"windows": 0, "gather": 0}
+        e.render_dispatches = {"block": 0, "horizon": 0}
+
+
+def check_launches(launches: dict, windows: int, engines, label: str):
+    """The fetch kernel launched once a windows block (x shards: `windows`
+    counts them), the mixdown once a shard a render."""
+    check(launches["fetch_interp"] == windows,
+          f"{label}: fetch kernel launched {launches['fetch_interp']} times "
+          f"for {windows} windows blocks")
+    want = renders(engines)
+    check(launches["lane_mixdown"] == want,
+          f"{label}: mixdown kernel launched {launches['lane_mixdown']} "
+          f"times for {want} shard renders")
 
 
 def session_plan(sr: int, num_voices: int = NUM_VOICES,
@@ -377,6 +456,60 @@ def phase_kernel(device) -> float:
     return worst
 
 
+# (V, B, H, lanes outside [0, 12), non-zero init); H=0 is one block
+MIXDOWN_CASES = ((NUM_VOICES, LIVE_BLOCK, 0, False, False),
+                 (NUM_VOICES, SUPER_BLOCK, 0, False, False),
+                 (NUM_VOICES, LIVE_BLOCK, 16, False, False),
+                 (NUM_VOICES, LIVE_BLOCK, 0, True, False),
+                 (NUM_VOICES, SUPER_BLOCK, 0, True, True),
+                 (NUM_VOICES, LIVE_BLOCK, 16, True, True))
+
+
+def mixdown_inputs(rng, V: int, B: int, H: int, stray: bool, init: bool,
+                   device) -> tuple:
+    """(contrib [V, B, 2] or [H, V, B, 2], lane int32 [V], init or None)
+    on `device`: contributions at the session's scale with exact zeros,
+    lanes in [0, 12) and (`stray`) some outside it."""
+    lead = (H,) if H else ()
+    contrib = (0.3 * rng.standard_normal(lead + (V, B, 2))).astype(np.float32)
+    contrib[rng.random(contrib.shape) < 0.1] = 0.0
+    lane = rng.integers(0, 12, V)
+    if stray:
+        lane = np.where(rng.random(V) < 0.15,
+                        rng.choice([-7, -1, 12, 100], V), lane)
+    start = (rng.standard_normal(lead + (12, B, 2)).astype(np.float32)
+             if init else None)
+    return (torch.from_numpy(contrib).to(device),
+            torch.from_numpy(lane.astype(np.int32)).to(device),
+            None if start is None else torch.from_numpy(start).to(device))
+
+
+def phase_mixdown(device) -> float:
+    """The lane mixdown kernel against its plain version on the card:
+    torch.equal at each of MIXDOWN_CASES. Returns the max abs error (0)."""
+    from libzl_tpu_torch.ops import mixdown as md
+
+    rng = np.random.default_rng(4321)
+    worst = 0.0
+    for V, B, H, stray, init in MIXDOWN_CASES:
+        contrib, lane, start = mixdown_inputs(rng, V, B, H, stray, init,
+                                              device)
+        got = md.lane_mixdown(contrib, lane, init=start)
+        want = md.lane_mixdown_plain(contrib, lane, init=start)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"mixdown V={V} B={B}" + (f" H={H}" if H else "")
+              + (", lanes outside [0, 12)" if stray else "")
+              + (", non-zero init" if init else "")
+              + f": max_abs_err {err:.3e}, torch.equal "
+              f"{torch.equal(got, want)}")
+        check(bool(torch.isfinite(got).all()), "non-finite mixdown")
+        check(torch.equal(got, want), f"mixdown kernel differs from plain "
+              f"at V={V} B={B} H={H}: {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
 def _densest_lane(engine) -> int:
     act = engine.pool.active
     return int(np.bincount(engine.pool.lane[act], minlength=12).max()) \
@@ -415,9 +548,8 @@ def _compare_blocks(gpu, cpu, n_blocks: int, label: str) -> dict:
     return worst
 
 
-def phase_slice(device) -> int:
+def phase_slice(device) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
-    from libzl_tpu_torch.ops import fetch_windows as fw
 
     pairs = []
     for B, n in ((SUPER_BLOCK, SLICE_SUPER_BLOCKS),
@@ -434,7 +566,9 @@ def phase_slice(device) -> int:
         pairs.append((B, n, gpu, cpu))
     torch.cuda.synchronize()
 
-    fw.fetch_interp.launches = 0
+    gpus = [g for _, _, g, _ in pairs]
+    reset_counts(gpus)
+    reset_launches()
     for B, n, gpu, cpu in pairs:
         t0 = time.perf_counter()
         worst = _compare_blocks(gpu, cpu, n, f"B={B}")
@@ -444,17 +578,16 @@ def phase_slice(device) -> int:
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
               + f" ({time.perf_counter() - t0:.1f} s)")
     torch.cuda.synchronize()
-    launches = fw.fetch_interp.launches
+    launches = read_launches()
 
-    windows = sum(g.fetch_dispatches["windows"] for _, _, g, _ in pairs)
-    gather = sum(g.fetch_dispatches["gather"] for _, _, g, _ in pairs)
-    print(f"slice: kernel launches {launches}, dispatched blocks windows "
-          f"{windows} gather {gather}")
+    windows = sum(g.fetch_dispatches["windows"] for g in gpus)
+    gather = sum(g.fetch_dispatches["gather"] for g in gpus)
+    print(f"slice: kernel launches {json.dumps(launches)}, dispatched blocks "
+          f"windows {windows} gather {gather}, renders {renders(gpus)}")
     check(gather == 0, "a block fell back to the gather fetch")
     check(windows == SLICE_SUPER_BLOCKS + SLICE_LIVE_BLOCKS,
           f"{windows} dispatched blocks, expected every block")
-    check(launches == windows,
-          f"kernel launched {launches} times for {windows} blocks")
+    check_launches(launches, windows, gpus, "slice")
     return launches
 
 
@@ -521,9 +654,7 @@ def drive_default(hz, pb, cpu, n: int, off_at: int, strip_at: int) -> dict:
                 rebuilds=kinds.get("event_rebuild", [0, 0])[1])
 
 
-def phase_default_engine(device) -> int:
-    from libzl_tpu_torch.ops import fetch_windows as fw
-
+def phase_default_engine(device) -> dict:
     runs = []
     for B, n, off_at, strip_at in DEFAULT_RUNS:
         hz, pb, cpu = default_engines(device, B)
@@ -535,15 +666,14 @@ def phase_default_engine(device) -> int:
               f"{hz._bucket_ladder}")
         runs.append((B, n, off_at, strip_at, hz, pb, cpu))
     torch.cuda.synchronize()
-    total = 0
+    total = {}
     for B, n, off_at, strip_at, hz, pb, cpu in runs:
-        for e in (hz, pb):
-            e.fetch_dispatches = {"windows": 0, "gather": 0}
+        reset_counts((hz, pb))
         t0 = time.perf_counter()
-        fw.fetch_interp.launches = 0
+        reset_launches()
         r = drive_default(hz, pb, cpu, n, off_at, strip_at)
         torch.cuda.synchronize()
-        launches = fw.fetch_interp.launches
+        launches = read_launches()
         windows = hz.fetch_dispatches["windows"] + pb.fetch_dispatches[
             "windows"]
         gather = hz.fetch_dispatches["gather"] + pb.fetch_dispatches["gather"]
@@ -555,10 +685,12 @@ def phase_default_engine(device) -> int:
               + ", ".join(f"{k} {v:.3e}" for k, v in r["worst"].items())
               + f"; vs cuda lookahead=0 max |diff| {r['worst_pb']:.3e}"
               f"{' (bit-equal)' if r['worst_pb'] == 0.0 else ''}; kernel "
-              f"launches {launches}, rendered blocks windows {windows} "
-              f"(horizon engine {hz.fetch_dispatches['windows']}) gather "
-              f"{gather}; spec failures {stats['spec_failures']} "
-              f"({time.perf_counter() - t0:.1f} s)")
+              f"launches {json.dumps(launches)}, rendered blocks windows "
+              f"{windows} (horizon engine {hz.fetch_dispatches['windows']}) "
+              f"gather {gather}, renders {renders((hz, pb))} "
+              f"({json.dumps(hz.render_dispatches)} + "
+              f"{json.dumps(pb.render_dispatches)}); spec failures "
+              f"{stats['spec_failures']} ({time.perf_counter() - t0:.1f} s)")
         check(stats["spec_failures"] == 0,
               f"speculative build failed: {stats['spec_last_failure']}")
         check(r["horizons"] >= 1 and r["adoptions"] >= 2,
@@ -566,10 +698,8 @@ def phase_default_engine(device) -> int:
         check(r["preempted"] >= 2 and r["rebuilt"] >= 2,
               f"B={B}: {r['preempted']} preemptions, {r['rebuilt']} rebuilt")
         check(gather == 0, "a block fell back to the gather fetch")
-        check(launches == windows,
-              f"kernel launched {launches} times for {windows} rendered "
-              f"blocks")
-        total += launches
+        check_launches(launches, windows, (hz, pb), f"default B={B}")
+        total = add_launches(total, launches)
     return total
 
 
@@ -600,8 +730,9 @@ def _events_ms(fn, iters: int, primed: bool) -> list:
 
 def _device_profile(engine, n_blocks: int) -> dict:
     """Device time per block from torch.profiler's CUDA kernel events over
-    `n_blocks` chained blocks: total, kernel launches, and the fetch
-    kernel's share. Empty when the profiler sees no device events."""
+    `n_blocks` chained blocks: total, kernel launches, and the shares of
+    the fetch and mixdown kernels. Empty when the profiler sees no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -615,12 +746,15 @@ def _device_profile(engine, n_blocks: int) -> dict:
     device_us = sum(e.self_device_time_total for e in dev)
     if device_us <= 0:
         return {}
-    fetch_us = sum(e.self_device_time_total for e in dev
-                   if "fetch_interp_kernel" in e.key)
+    def share(name):
+        return sum(e.self_device_time_total for e in dev
+                   if name in e.key) / device_us
+
     return {
         "device_ms": device_us / n_blocks / 1e3,
         "kernels": sum(e.count for e in dev) / n_blocks,
-        "fetch_share": fetch_us / device_us,
+        "fetch_share": share("fetch_interp_kernel"),
+        "mixdown_share": share("lane_mixdown_kernel"),
     }
 
 
@@ -631,7 +765,8 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
         return
     print(f"[{card}] {label} device profile: {prof['device_ms']:.4f} ms "
           f"device per block, {prof['kernels']:.1f} kernels per block, fetch "
-          f"kernel {100 * prof['fetch_share']:.2f}% of device time; device "
+          f"kernel {100 * prof['fetch_share']:.2f}% and mixdown kernel "
+          f"{100 * prof['mixdown_share']:.2f}% of device time; device "
           f"busy {100 * prof['device_ms'] / block_ms:.1f}% of the "
           f"unprofiled process_block time ({block_ms:.4f} ms)")
 
@@ -671,33 +806,104 @@ def fetch_bound(args, r_max: float = 4.0) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def capture_fetches(engine) -> list:
-    """One more block of `engine`; returns (args, r_max) of each windows
-    fetch call it made (one per shard under a mesh)."""
+def capture_calls(engine) -> dict:
+    """One more block of `engine`; the arguments of each kernel call it
+    made (one a shard under a mesh): {"fetch": [(args, r_max)], "mixdown":
+    [(contrib, lane, init)]}."""
     from libzl_tpu_torch.ops import voice
+    from libzl_tpu_torch.parallel import sharding
 
-    calls = []
-    real = voice.fetch_interp
+    calls = {"fetch": [], "mixdown": []}
+    real_fetch, real_mix = voice.fetch_interp, sharding.lane_mixdown
 
-    def spy(*args, **kw):
-        calls.append((args, kw.get("r_max", 4.0)))
-        return real(*args, **kw)
+    def fetch(*args, **kw):
+        calls["fetch"].append((args, kw.get("r_max", 4.0)))
+        return real_fetch(*args, **kw)
 
-    voice.fetch_interp = spy
+    def mix(contrib, lane, num_lanes=12, init=None):
+        calls["mixdown"].append((contrib, lane, init))
+        return real_mix(contrib, lane, num_lanes, init)
+
+    voice.fetch_interp, sharding.lane_mixdown = fetch, mix
     try:
         engine.process_block()
     finally:
-        voice.fetch_interp = real
+        voice.fetch_interp, sharding.lane_mixdown = real_fetch, real_mix
     torch.cuda.synchronize()
     return calls
 
 
-def capture_fetch(engine) -> tuple:
-    """(args, r_max) of the windows fetch call of one more block of a
-    one-device per-block engine: the session's last per-block dispatch."""
-    calls = capture_fetches(engine)
-    check(len(calls) == 1, f"{len(calls)} fetch calls in one block")
-    return calls[-1]
+def capture_dispatch(engine) -> tuple:
+    """(fetch (args, r_max), mixdown (contrib, lane, init)) of one more
+    block of a one-device per-block engine: the session's last per-block
+    dispatch."""
+    calls = capture_calls(engine)
+    check(len(calls["fetch"]) == 1 and len(calls["mixdown"]) == 1,
+          f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
+          f"calls in one block")
+    return calls["fetch"][0], calls["mixdown"][0]
+
+
+def mixdown_bound(contrib, lane, init=None) -> dict:
+    """The least time the card could take for one lane mixdown on these
+    inputs: contrib, lane and init (when given) read once and the
+    [.., 12, B, 2] output written once, against one float32 add per slice,
+    voice with a lane in [0, 12), frame and channel."""
+    H = contrib.shape[0] if contrib.dim() == 4 else 1
+    B = contrib.shape[-2]
+    out_bytes = H * 12 * B * 2 * 4
+    nbytes = (contrib.numel() * 4 + lane.numel() * 4 + out_bytes
+              + (out_bytes if init is not None else 0))
+    laned = int(((lane >= 0) & (lane < 12)).sum())
+    ops = laned * (H if lane.dim() == 1 else 1) * B * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_mixdown(card: str, res: dict, key: str, contrib, lane) -> None:
+    """The mixdown kernel, its plain version and the one-hot torch.matmul it
+    replaces (one call, the one-hot built beforehand; another summation
+    order) on the same inputs, p50 of 50 CUDA-event timings each in turns,
+    beside the bound; into res["mix_<name>_ms_<key>"]."""
+    from libzl_tpu_torch.ops import mixdown as md
+
+    V = contrib.shape[-3]
+    onehot = (torch.arange(12, device=lane.device)[:, None]
+              == lane.long()[None, :]).to(torch.float32)
+    flat = contrib.reshape(*contrib.shape[:-3], V, -1)
+    fns = {"kernel": lambda: md.lane_mixdown(contrib, lane),
+           "plain": lambda: md.lane_mixdown_plain(contrib, lane),
+           "library": lambda: torch.matmul(onehot, flat)}
+    want = fns["plain"]()
+    check(torch.equal(fns["kernel"](), want),
+          f"mixdown {key}: kernel differs from plain")
+    lib_err = float((fns["library"]().reshape(want.shape) - want).abs().max())
+    for f in fns.values():
+        for _ in range(5):
+            f()
+    names = list(fns)
+    samples = {name: [] for name in names}
+    for name in names + names[::-1]:
+        samples[name] += _events_ms(fns[name], 25, True)
+    for name in names:
+        res[f"mix_{name}_ms_{key}"] = float(np.median(samples[name]))
+    bound = mixdown_bound(contrib, lane)
+    res[f"mix_bound_ms_{key}"] = bound["bound_ms"]
+    res[f"mix_bound_by_{key}"] = bound["bound_by"]
+    res[f"mix_bytes_{key}"] = bound["bytes"]
+    kernel_ms = res[f"mix_kernel_ms_{key}"]
+    print(f"[{card}] mixdown {key} {tuple(contrib.shape)}: device time "
+          + ", ".join(f"{name} {res[f'mix_{name}_ms_{key}']:.4f} ms"
+                      for name in names)
+          + f" (p50 of 50 CUDA-event timings each, in turns; the plain "
+          f"version syncs once for its step count); {bound['bytes']} bytes "
+          f"-> bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, 3.35 "
+          f"TB/s); the kernel reaches "
+          f"{100 * bound['bound_ms'] / kernel_ms:.1f}% of its bound "
+          f"({bound['bytes'] / 1e6 / kernel_ms:.0f} GB/s); the matmul's "
+          f"order differs from the fold by {lib_err:.3e} at most")
 
 
 def load_version(spec: str) -> tuple:
@@ -768,7 +974,8 @@ def phase_timing(device, card: str, versions: dict) -> dict:
     res["super_dispatch_ms_p50"] = prof["dispatch"]["p50_ms"]
     res["super_process_block_ms_p50"] = prof["process_block"]["p50_ms"]
     super_profile = _device_profile(eng, 20)
-    session = {SUPER_BLOCK: capture_fetch(eng)}
+    session, session_mix = {}, {}
+    session[SUPER_BLOCK], session_mix[SUPER_BLOCK] = capture_dispatch(eng)
     print(f"[{card}] superblock realtime factor {res['rt_superblock']:.3f}x "
           f"(rounds {', '.join(f'{r:.3f}' for r in rounds)}; 1024 voices, "
           f"64 clips, B=1024, 48 kHz)")
@@ -798,7 +1005,7 @@ def phase_timing(device, card: str, versions: dict) -> dict:
     res["live_host_program_ms_p50"] = lprof["host_program"]["p50_ms"]
     res["live_dispatch_ms_p50"] = lprof["dispatch"]["p50_ms"]
     live_profile = _device_profile(live, 40)
-    session[LIVE_BLOCK] = capture_fetch(live)
+    session[LIVE_BLOCK], session_mix[LIVE_BLOCK] = capture_dispatch(live)
     print(f"[{card}] live block (B=128, 1024 voices) ms/block p50 "
           f"{res['live_ms_p50']:.4f} chained mean "
           f"{res['live_ms_chained_mean']:.4f} (realtime "
@@ -906,6 +1113,18 @@ def phase_timing(device, card: str, versions: dict) -> dict:
               f"rmax 2.0 {res[f'kernel_ms_{V}x{B}_rmax2']:.4f} ms, rmax 4.0 "
               f"{res[f'kernel_ms_{V}x{B}_rmax4']:.4f} ms (same taps, "
               f"bit-equal outputs; p50 of 50 each, in turns)")
+
+    # the lane mixdown at the main path's shapes: the session's last
+    # per-block contributions, and a stacked H=16 horizon at B=128 (random
+    # contributions on the session's lanes)
+    for B in (SUPER_BLOCK, LIVE_BLOCK):
+        contrib, lane, _ = session_mix[B]
+        time_mixdown(card, res, f"{NUM_VOICES}x{B}_session", contrib, lane)
+    lane = session_mix[LIVE_BLOCK][1]
+    stacked = torch.from_numpy((0.3 * np.random.default_rng(8).standard_normal(
+        (16, NUM_VOICES, LIVE_BLOCK, 2))).astype(np.float32)).to(device)
+    time_mixdown(card, res, f"16x{NUM_VOICES}x{LIVE_BLOCK}_stacked", stacked,
+                 lane)
     torch.cuda.synchronize()
     return res
 
@@ -1117,8 +1336,9 @@ def bridge_run(device: str, drain, wavs: list, tmp: str) -> dict:
         engine.drain_speculation()
         out = dict(stream=np.concatenate(sink.blocks), lane=np.concatenate(
             lane_blocks), dispatches=dict(engine.fetch_dispatches),
-            densest=_densest_lane(engine), drain=rt.bounce_drain_blocks,
-            phases=rt.phase_stats(), stats=engine.stats())
+            renders=renders([engine]), densest=_densest_lane(engine),
+            drain=rt.bounce_drain_blocks, phases=rt.phase_stats(),
+            stats=engine.stats())
     finally:
         bridge.shutdown_engine()
     out["seconds"] = time.perf_counter() - t0
@@ -1135,13 +1355,11 @@ def _close(got, want, atol: float, label: str) -> float:
     return float(err.max())
 
 
-def phase_bridge(device, wavs: list, tmp: str) -> int:
-    from libzl_tpu_torch.ops import fetch_windows as fw
-
-    fw.fetch_interp.launches = 0
+def phase_bridge(device, wavs: list, tmp: str) -> dict:
+    reset_launches()
     runs = {k: bridge_run(device, k, wavs, tmp) for k in ("auto", 1)}
     torch.cuda.synchronize()
-    launches = fw.fetch_interp.launches
+    launches = read_launches()
     ref = bridge_run("cpu", 1, wavs, tmp)
     drained, plain = runs["auto"], runs[1]
     check(drained["drain"] == 32 and plain["drain"] == 1,
@@ -1162,6 +1380,7 @@ def phase_bridge(device, wavs: list, tmp: str) -> int:
     check(float(np.abs(plain["stream"]).max()) > 0.05, "silent sink stream")
     windows = sum(r["dispatches"]["windows"] for r in runs.values())
     gather = sum(r["dispatches"]["gather"] for r in runs.values())
+    mixdowns = sum(r["renders"] for r in runs.values())
     for k, r in runs.items():
         check(r["stats"]["spec_failures"] == 0,
               f"drain {k}: speculative build failed")
@@ -1171,24 +1390,50 @@ def phase_bridge(device, wavs: list, tmp: str) -> int:
     print(f"bridge: drain-32 == drain-1 (bit-equal); vs cpu (densest lane "
           f"{ref['densest']} voices, atol {atol:.1e}) max err "
           f"{max(errs):.3e}; lane:2 recording peak {peak:.3f} max err "
-          f"{lane_err:.3e}; kernel launches {launches}, rendered blocks "
-          f"windows {windows} gather {gather}; cpu run "
-          f"{ref['seconds']:.1f} s")
+          f"{lane_err:.3e}; kernel launches {json.dumps(launches)}, "
+          f"rendered blocks windows {windows} gather {gather}, renders "
+          f"{mixdowns}; cpu run {ref['seconds']:.1f} s")
     check(gather == 0, "a block fell back to the gather fetch")
-    check(launches == windows, f"kernel launched {launches} times for "
-          f"{windows} rendered blocks")
+    check(launches["fetch_interp"] == windows, f"fetch kernel launched "
+          f"{launches['fetch_interp']} times for {windows} rendered blocks")
+    check(launches["lane_mixdown"] == mixdowns, f"mixdown kernel launched "
+          f"{launches['lane_mixdown']} times for {mixdowns} renders")
     torch.cuda.synchronize()
     return launches
 
 
-def phase_pump(device, wavs: list, card: str) -> int:
+def reset_counts_locked(rt) -> None:
+    """With the pump held at the runtime lock and the engine's speculation
+    drained (no render in flight on any thread), zero the kernels' launch
+    counts and the engine's dispatch counts: the warmup's renders, which
+    the engine does not count, stay out of both."""
+    def reset():
+        rt.engine.drain_speculation()
+        torch.cuda.synchronize()
+        reset_counts([rt.engine])
+        reset_launches()
+
+    rt.run_locked(reset)
+
+
+def pump_launches(engine, label: str) -> dict:
+    """After the pump stopped and the speculation drained: the kernels'
+    launches, held to the engine's dispatches."""
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, engine.fetch_dispatches["windows"], [engine],
+                   label)
+    check(launches["fetch_interp"] > 0 and launches["lane_mixdown"] > 0,
+          f"{label}: a kernel was never launched: {launches}")
+    return launches
+
+
+def phase_pump(device, wavs: list, card: str) -> dict:
     """The wall-clock pump on the card with a null sink and per-block
     delivery (bounce drain 1: what a pacing sink gets), the session loaded
     while it runs; PUMP_SECONDS of it measured."""
     from libzl_tpu_torch.capi import bridge
-    from libzl_tpu_torch.ops import fetch_windows as fw
 
-    fw.fetch_interp.launches = 0
     with _env(LIBZL_TPU_NO_PUMP=None, LIBZL_TPU_BACKEND=device,
               LIBZL_TPU_VOICES=NUM_VOICES, LIBZL_TPU_BLOCK=LIVE_BLOCK,
               LIBZL_TPU_BOUNCE_DRAIN=1, LIBZL_TPU_SINK="null"):
@@ -1197,6 +1442,7 @@ def phase_pump(device, wavs: list, card: str) -> int:
         rt = bridge._rt()
         engine = rt.engine
         check(rt._pump is not None, "the pump did not start")
+        reset_counts_locked(rt)
         abi_session(bridge, wavs)
         b0, t0 = engine.total_blocks, time.perf_counter()
         time.sleep(PUMP_SECONDS)
@@ -1207,15 +1453,14 @@ def phase_pump(device, wavs: list, card: str) -> int:
         stats = engine.stats()
         waits = rt.profiler.summary().get("copy_wait", {})
         error = rt.pump_error
+        launches = pump_launches(engine, "pump")
     finally:
         bridge.shutdown_engine()
-    torch.cuda.synchronize()
-    launches = fw.fetch_interp.launches
     period = LIVE_BLOCK / SAMPLE_RATE
     print(f"[{card}] pump (1024 voices, B=128, null sink, per-block "
           f"delivery): {blocks} blocks rendered in {wall:.2f} s of wall "
           f"time = {wall / period:.0f} block periods ({blocks * period / wall:.3f}x "
-          f"realtime); kernel launches {launches}")
+          f"realtime); kernel launches {json.dumps(launches)}")
     print(f"[{card}] pump copy wait p50 {waits.get('p50_ms', float('nan')):.4f} "
           f"ms, max {waits.get('max_ms', float('nan')):.4f} ms over "
           f"{waits.get('count', 0)} blocks")
@@ -1225,7 +1470,6 @@ def phase_pump(device, wavs: list, card: str) -> int:
     check(error is None, f"pump error: {error!r}")
     check(stats["spec_failures"] == 0,
           f"speculative build failed: {stats['spec_last_failure']}")
-    check(launches > 0, "the pump never launched the kernel")
     return launches
 
 
@@ -1418,22 +1662,56 @@ def mesh_engines(device, B: int, opts: dict, meshes: dict) -> dict:
     return out
 
 
+MESH_FIELDS = ("master", "lane_mix", "lane_peaks", "lane_rms", "voice_peaks")
+
+
+def _check_equal(got, want, label: str, worst: dict) -> None:
+    """One block of a mesh engine against the unsharded engine: every field
+    of MESH_FIELDS finite, of the same shape and bit-equal (the carried
+    in-order mixdown); audible master. Folds the max errors into
+    `worst`."""
+    for name in MESH_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{label}: {name} shape/finite")
+        a = a.to(b.device)
+        err = float((a - b).abs().max())
+        worst[name] = max(worst.get(name, 0.0), err)
+        check(torch.equal(a, b), f"{label}: {name} differs from the "
+              f"unsharded engine by {err:.3e}")
+    check(float(want.master.abs().max()) > 0, f"{label}: silent master")
+
+
 def drive_mesh(engines: dict, n: int, label: str) -> dict:
     """Drive every engine `n` blocks in lockstep, each mesh engine held to
-    the unsharded one (engines[1]) every block under phase 4's rule."""
+    the unsharded one (engines[1]) every block: bit-equal."""
     worst = {}
-    ref = engines[1]
     for i in range(n):
-        before = _densest_lane(ref)
         outs = {k: e.process_block().outputs for k, e in engines.items()}
-        mix_atol = MIX_ATOL_PER_VOICE * max(before, _densest_lane(ref), 1)
         for k, o in outs.items():
             if k != 1:
-                _check_block(o, outs[1], mix_atol, f"{label} k={k} block {i}",
+                _check_equal(o, outs[1], f"{label} k={k} block {i}",
                              worst.setdefault(k, {}))
     for e in engines.values():
         e.drain_speculation()
     return worst
+
+
+def _mesh_launches(engines: dict, label: str) -> dict:
+    """The kernels' launches of a drive_mesh run, held to the engines'
+    dispatches: the fetch k x each engine's windows blocks, the mixdown k x
+    each engine's renders."""
+    launches = read_launches()
+    check(sum(e.fetch_dispatches["gather"] for e in engines.values()) == 0,
+          f"{label}: a block fell back to the gather fetch")
+    check_launches(launches, sum(k * e.fetch_dispatches["windows"]
+                                 for k, e in engines.items()),
+                   engines.values(), label)
+    for k, e in engines.items():
+        check(e.stats()["spec_failures"] == 0,
+              f"{label} k={k}: speculative build failed: "
+              f"{e.stats()['spec_last_failure']}")
+    return launches
 
 
 def time_mesh(e, n: int) -> dict:
@@ -1453,53 +1731,51 @@ def time_mesh(e, n: int) -> dict:
 
 
 def check_shard_kernels(engine, k: int) -> int:
-    """Each shard's windows fetch of one more block against the plain
-    version: bit-equal (phase 3's rule for the kernel). Returns the
-    per-shard voice count."""
+    """Each shard's windows fetch and lane mixdown (from the mix carried
+    from the shard before) of one more block against the plain versions:
+    bit-equal. Returns the per-shard voice count."""
     from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.ops import mixdown as md
 
-    calls = capture_fetches(engine)
-    check(len(calls) == k, f"{len(calls)} fetch calls for {k} shards")
-    for args, r_max in calls:
+    calls = capture_calls(engine)
+    check(len(calls["fetch"]) == k and len(calls["mixdown"]) == k,
+          f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
+          f"calls for {k} shards")
+    for args, r_max in calls["fetch"]:
         check(torch.equal(fw.fetch_interp(*args, r_max=r_max),
                           fw.fetch_interp_plain(*args, r_max=r_max)),
               f"shard kernel at V={args[1].shape[0]} differs from plain")
-    return int(calls[0][0][1].shape[0])
+    for contrib, lane, init in calls["mixdown"]:
+        check(torch.equal(md.lane_mixdown(contrib, lane, init=init),
+                          md.lane_mixdown_plain(contrib, lane, init=init)),
+              f"shard mixdown at V={contrib.shape[0]} differs from plain")
+    return int(calls["fetch"][0][0][1].shape[0])
 
 
 def phase_mesh(device, card: str) -> tuple:
-    from libzl_tpu_torch.ops import fetch_windows as fw
     from libzl_tpu_torch.parallel.sharding import canonical_device, make_mesh
 
     first = canonical_device(device)
     meshes = {1: None}
     meshes.update({k: make_mesh(devices=[first] * k) for k in MESH_SHARDS})
-    total, timing = 0, {}
+    total, timing = {}, {}
     for mode, opts in (("per-block", dict(lookahead=0)), ("default", {})):
         for B, n in MESH_RUNS:
             t0 = time.perf_counter()
             engines = mesh_engines(first, B, opts, meshes)
             for k, e in engines.items():
                 check(e.fetch == "windows", f"k={k}: fetch {e.fetch}")
-                e.fetch_dispatches = {"windows": 0, "gather": 0}
+            reset_counts(engines.values())
             torch.cuda.synchronize()
-            fw.fetch_interp.launches = 0
+            reset_launches()
             worst = drive_mesh(engines, n, f"mesh {mode} B={B}")
             torch.cuda.synchronize()
-            launches = fw.fetch_interp.launches
+            launches = _mesh_launches(engines, f"mesh {mode} B={B}")
             windows = {k: e.fetch_dispatches["windows"]
                        for k, e in engines.items()}
-            gather = sum(e.fetch_dispatches["gather"]
-                         for e in engines.values())
-            expect = sum(k * w for k, w in windows.items())
-            check(gather == 0, "a mesh block fell back to the gather fetch")
-            check(launches == expect, f"kernel launched {launches} times, "
-                  f"expected shards x windows blocks = {expect}")
-            for k, e in engines.items():
-                check(e.stats()["spec_failures"] == 0,
-                      f"k={k}: speculative build failed: "
-                      f"{e.stats()['spec_last_failure']}")
-            total += launches
+            rendered = {k: sum(e.render_dispatches.values())
+                        for k, e in engines.items()}
+            total = add_launches(total, launches)
             shard_v = {k: check_shard_kernels(engines[k], k)
                        for k in MESH_SHARDS if not engines[k]._lookahead}
             for k, e in engines.items():
@@ -1511,16 +1787,19 @@ def phase_mesh(device, card: str) -> tuple:
                   + "; ".join(f"k={k} max err " + ", ".join(
                       f"{a} {v:.3e}" for a, v in worst[k].items())
                       for k in MESH_SHARDS)
-                  + f"; windows blocks {windows}, kernel launches {launches}"
-                  f" (= sum of k x blocks)"
-                  + (f"; shard kernels bit-equal to plain at V="
+                  + f"; windows blocks {windows}, renders {rendered}"
+                  f", kernel launches {json.dumps(launches)} (= sum of k x "
+                  f"blocks, k x renders)"
+                  + (f"; shard fetches and mixdowns bit-equal to plain at V="
                      f"{sorted(shard_v.values())}" if shard_v else "")
                   + f" ({time.perf_counter() - t0:.1f} s)")
             print(f"[{card}] mesh {mode} B={B}: "
                   + "; ".join(f"k={k} realtime {t['rt']:.3f}x, process_block "
                               f"p50 {t['ms_p50']:.4f} ms"
                               + (f", device {t['device_ms']:.4f} ms and "
-                                 f"{t['kernels']:.0f} kernels a block"
+                                 f"{t['kernels']:.1f} kernels a block, "
+                                 f"mixdown "
+                                 f"{100 * t['mixdown_share']:.2f}% of device"
                                  if "device_ms" in t else "")
                               for k in engines
                               for t in [timing[(mode, B, k)]])
@@ -1528,7 +1807,7 @@ def phase_mesh(device, card: str) -> tuple:
                   "torch.profiler over 10 more)")
             del engines
     if torch.cuda.device_count() >= 2:
-        total += phase_mesh_cards(card)
+        total = add_launches(total, phase_mesh_cards(card))
     else:
         print("mesh across cards: NOT RUN: one card")
     torch.cuda.synchronize()
@@ -1540,43 +1819,34 @@ def sync_cards() -> None:
         torch.cuda.synchronize(i)
 
 
-def phase_mesh_cards(card: str) -> int:
+def phase_mesh_cards(card: str) -> dict:
     """Phase 13 across every visible card (make_mesh(), two or more): the
     session per-block at B=1024 and with the default options at B=128, each
-    block held to the unsharded engine on the first card under phase 4's
-    rule; launches equal to shards x windows blocks; each card's kernel call
-    bit-equal to the plain version on that card; realtime factor and
-    process_block ms per engine. Returns the kernel launches."""
-    from libzl_tpu_torch.ops import fetch_windows as fw
+    block bit-equal to the unsharded engine on the first card; launches
+    equal to shards x windows blocks and shards x renders; each card's fetch
+    and mixdown call bit-equal to the plain version on that card; realtime
+    factor and process_block ms per engine. Returns the kernels'
+    launches."""
     from libzl_tpu_torch.parallel.sharding import make_mesh
 
     cards = make_mesh()
     k = cards.size
     check(k >= 2, f"mesh across cards needs two or more cards, has {k}")
-    total = 0
+    total = {}
     for mode, opts, B, n in (("per-block", dict(lookahead=0), SUPER_BLOCK, 8),
                              ("default", {}, LIVE_BLOCK, 40)):
         t0 = time.perf_counter()
         engines = mesh_engines(cards.devices[0], B, opts, {1: None, k: cards})
-        for e in engines.values():
-            e.fetch_dispatches = {"windows": 0, "gather": 0}
+        reset_counts(engines.values())
         sync_cards()
-        fw.fetch_interp.launches = 0
-        worst = drive_mesh(engines, n, f"mesh across {k} cards {mode} B={B}")
+        reset_launches()
+        label = f"mesh across {k} cards {mode} B={B}"
+        worst = drive_mesh(engines, n, label)
         sync_cards()
-        launches = fw.fetch_interp.launches
+        launches = _mesh_launches(engines, label)
         windows = {kk: e.fetch_dispatches["windows"]
                    for kk, e in engines.items()}
-        check(sum(e.fetch_dispatches["gather"] for e in engines.values())
-              == 0, "a block across cards fell back to the gather fetch")
-        check(launches == sum(kk * w for kk, w in windows.items()),
-              f"kernel launched {launches} times across cards, expected "
-              f"shards x windows blocks of {windows}")
-        for e in engines.values():
-            check(e.stats()["spec_failures"] == 0,
-                  f"speculative build failed across cards: "
-                  f"{e.stats()['spec_last_failure']}")
-        total += launches
+        total = add_launches(total, launches)
         shard_v = (check_shard_kernels(engines[k], k)
                    if not engines[k]._lookahead else None)
         timing = {kk: time_mesh(e, 20 if B == SUPER_BLOCK else 96)
@@ -1585,10 +1855,10 @@ def phase_mesh_cards(card: str) -> int:
         print(f"mesh across {k} cards ({', '.join(map(str, cards.devices))})"
               f" {mode} B={B} H={engines[1]._lookahead}: {n} blocks; max err "
               + ", ".join(f"{a} {v:.3e}" for a, v in worst[k].items())
-              + f"; windows blocks {windows}, kernel launches {launches} "
-              f"(= sum of k x blocks)"
-              + (f"; each card's kernel bit-equal to plain at V={shard_v}"
-                 if shard_v else "")
+              + f"; windows blocks {windows}, kernel launches "
+              f"{json.dumps(launches)} (= sum of k x blocks, k x renders)"
+              + (f"; each card's fetch and mixdown bit-equal to plain at "
+                 f"V={shard_v}" if shard_v else "")
               + f" ({time.perf_counter() - t0:.1f} s)")
         print(f"[{card}] mesh across {k} cards {mode} B={B}: "
               + "; ".join(f"k={kk} realtime {t['rt']:.3f}x, process_block "
@@ -1597,6 +1867,155 @@ def phase_mesh_cards(card: str) -> int:
               + " (chained blocks, one sync at the end)")
         del engines
     return total
+
+
+# ------------------------------------------------------- the soak (14)
+
+SOAK_VOICES = 1024
+SOAK_RECORDED_SHARE = 0.95   # of the frames rendered while recording
+SOAK_SILENT = 0.01           # a recording peaking below this is silent
+
+
+def soak_wavs(tmp: str) -> list:
+    """tools/tpu_soak_r3.py's four clips: two-partial sines at 110, 220.5,
+    331 and 441.5 Hz, 0.5 to 1.4 s long."""
+    from libzl_tpu_torch.io.wav import write_wav
+
+    paths = []
+    for i, freq in enumerate((110.0, 220.5, 331.0, 441.5)):
+        t = np.arange(int(SAMPLE_RATE * (0.5 + 0.3 * i))) / SAMPLE_RATE
+        w = (0.35 * np.sin(2 * np.pi * freq * t)
+             + 0.1 * np.sin(2 * np.pi * 2 * freq * t)).astype(np.float32)
+        paths.append(f"{tmp}/soak_in{i}.wav")
+        write_wav(paths[-1], w, SAMPLE_RATE)
+    return paths
+
+
+def phase_soak(device, card: str, tmp: str, seconds: float,
+               event_seconds: float) -> dict:
+    """tools/tpu_soak_r3.py on the port: the bridge's wall-clock pump with a
+    file sink, global playback recorded, a random clip retriggered every
+    `event_seconds` for `seconds`. Returns the kernels' launches."""
+    from libzl_tpu_torch.capi import bridge
+    from libzl_tpu_torch.io.wav import read_wav
+
+    rng = np.random.default_rng(7)
+    wavs = soak_wavs(tmp)
+    rec_path = f"{tmp}/soak_rec.wav"
+    t0 = time.perf_counter()
+    with _env(LIBZL_TPU_NO_PUMP=None, LIBZL_TPU_BACKEND=device,
+              LIBZL_TPU_VOICES=SOAK_VOICES, LIBZL_TPU_BLOCK=LIVE_BLOCK,
+              LIBZL_TPU_WARMUP=1, LIBZL_TPU_PIPELINE=2,
+              LIBZL_TPU_BOUNCE_DRAIN=None,
+              LIBZL_TPU_SINK=f"file:{tmp}/soak_sink.wav"):
+        bridge.init_engine()
+    boot = time.perf_counter() - t0
+    try:
+        rt = bridge._rt()
+        engine = rt.engine
+        check(rt._pump is not None, "the pump did not start")
+        reset_counts_locked(rt)
+        ids = [bridge.clip_new(p) for p in wavs]
+        bridge.levels_set_record_global_playback(True)
+        bridge.levels_set_global_playback_filename_prefix(rec_path)
+        bridge.levels_start_recording()
+        rec_b0 = engine.total_blocks
+        bridge.timer_start(124)
+        for cid in ids:
+            bridge.clip_play(cid, True)
+        b0, w0 = engine.total_blocks, time.monotonic()
+        deadline = w0 + seconds
+        retriggers = 0
+        while time.monotonic() < deadline:
+            time.sleep(min(event_seconds, max(deadline - time.monotonic(),
+                                              0.0)))
+            if time.monotonic() < deadline:
+                bridge.clip_play(ids[int(rng.integers(0, len(ids)))], True)
+                retriggers += 1
+        wall = time.monotonic() - w0
+        blocks = engine.total_blocks - b0
+        for cid in ids:
+            bridge.clip_stop(cid)
+        time.sleep(0.5)
+        bridge.levels_stop_recording()
+        rec_blocks = engine.total_blocks - rec_b0
+        bridge.timer_stop()
+        rt.stop_pump()
+        engine.drain_speculation()
+        stats = engine.stats()
+        phases = rt.phase_stats()
+        error = rt.pump_error
+        launches = pump_launches(engine, "soak")
+    finally:
+        bridge.shutdown_engine()
+    rec = read_wav(rec_path).samples
+    expected = wall * SAMPLE_RATE / LIVE_BLOCK
+    finite = bool(np.isfinite(rec).all())
+    peak = float(np.abs(rec).max()) if rec.size else 0.0
+    out = dict(
+        seconds=seconds, event_seconds=event_seconds, retriggers=retriggers,
+        voices=SOAK_VOICES, boot_seconds=boot, blocks=blocks,
+        blocks_expected=expected,
+        sustained_realtime=bool(blocks >= 0.99 * expected),
+        slo_missed=stats["slo_missed"], slo_total=stats["slo_total"],
+        slo_by_kind=stats["slo_by_kind"], dsp_load=stats["dsp_load"],
+        watchdog_scheduled=stats["watchdog_scheduled"],
+        watchdog_delivered=stats["watchdog_delivered"],
+        watchdog_mismatches=stats["watchdog_mismatches"],
+        watchdog_lost=stats["watchdog_lost"],
+        spec_failures=stats["spec_failures"],
+        pump_error=repr(error) if error else None,
+        recorded_blocks=rec_blocks,
+        recorded_seconds=rec.shape[0] / SAMPLE_RATE, recorded_peak=peak,
+        recorded_finite=finite, launches=launches, phase_stats=phases)
+    print(f"[{card}] soak {json.dumps(out)}")
+    check(error is None, f"soak: pump error {error!r}")
+    check(stats["spec_failures"] == 0,
+          f"soak: speculative build failed: {stats['spec_last_failure']}")
+    check(stats["watchdog_mismatches"] == 0 and stats["watchdog_lost"] == 0,
+          f"soak: watchdog mismatches {stats['watchdog_mismatches']}, lost "
+          f"{stats['watchdog_lost']}")
+    check(finite, "soak: non-finite recorded sample")
+    check(peak > SOAK_SILENT, f"soak: silent recording (peak {peak})")
+    want = SOAK_RECORDED_SHARE * rec_blocks * LIVE_BLOCK
+    check(rec.shape[0] >= want, f"soak: recorded {rec.shape[0]} frames, "
+          f"fewer than {want:.0f} ({SOAK_RECORDED_SHARE} x {rec_blocks} "
+          f"blocks)")
+    return launches
+
+
+def phase_examples(device, tmp: str) -> None:
+    """libzl_tpu_torch/examples' live_rig and midi_live_demo on the card for
+    1 s each, each in a subprocess."""
+    from libzl_tpu_torch.io.wav import read_wav
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LIBZL_TPU_")}
+    env["PYTHONPATH"] = str(ROOT)
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", *args], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"{args[0]} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        return proc.stdout.strip().splitlines(), time.perf_counter() - t0
+
+    out, secs = run("libzl_tpu_torch.examples.live_rig", "--device", device,
+                    "--seconds", "1")
+    check("live rig OK" in out, f"live_rig printed {out[-3:]}")
+    print(f"examples: live_rig on {device}: "
+          + "; ".join(out[-4:-1]) + f" -> live rig OK ({secs:.1f} s)")
+    wav = f"{tmp}/midi_live_demo.wav"
+    out, secs = run("libzl_tpu_torch.examples.midi_live_demo", wav,
+                    "--device", device, "--seconds", "1")
+    samples = read_wav(wav).samples
+    peak = float(np.abs(samples).max())
+    print(f"examples: midi_live_demo on {device}: {out[-1]} ({secs:.1f} s); "
+          f"WAV {samples.shape[0]} frames, peak {peak:.3f}")
+    check(np.isfinite(samples).all() and peak > 0.005,
+          f"midi_live_demo WAV peak {peak}")
 
 
 @contextlib.contextmanager
@@ -1616,6 +2035,10 @@ def main() -> int:
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="run phases 1 and 2, then only phase 13 across "
                          "every visible card (needs two or more)")
+    ap.add_argument("--soak-seconds", type=float, default=20.0,
+                    help="length of phase 14's pump soak")
+    ap.add_argument("--soak-event-seconds", type=float, default=5.0,
+                    help="seconds between phase 14's clip retriggers")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1639,6 +2062,7 @@ def main() -> int:
     check(not {"kernel", "plain"} & set(versions), "reserved version name")
     with _phase("3 kernel"):
         err = phase_kernel(device)
+        mix_err = phase_mixdown(device)
     with _phase("4 slice"):
         launches = phase_slice(device)
     with _phase("5 timing"):
@@ -1646,13 +2070,13 @@ def main() -> int:
     synthetic = f"{NUM_VOICES}x{SUPER_BLOCK}_synthetic"
     session = f"{NUM_VOICES}x{SUPER_BLOCK}_session"
     with _phase("6 default engine"):
-        launches += phase_default_engine(device)
+        launches = add_launches(launches, phase_default_engine(device))
     with tempfile.TemporaryDirectory() as tmp:
         wavs = write_session_wavs(tmp)
         with _phase("7 bridge"):
-            launches += phase_bridge(device, wavs, tmp)
+            launches = add_launches(launches, phase_bridge(device, wavs, tmp))
         with _phase("8 pump"):
-            launches += phase_pump(device, wavs, card)
+            launches = add_launches(launches, phase_pump(device, wavs, card))
         with _phase("9 shim"):
             phase_shim()
         with _phase("10 thumbnails"):
@@ -1663,10 +2087,16 @@ def main() -> int:
         stretch = phase_stretch(device, card)
     with _phase("13 mesh"):
         mesh_launches, mesh_timing = phase_mesh(device, card)
-    launches += mesh_launches
+    launches = add_launches(launches, mesh_launches)
+    with tempfile.TemporaryDirectory() as tmp, _phase("14 soak"):
+        launches = add_launches(launches, phase_soak(
+            device, card, tmp, opts.soak_seconds, opts.soak_event_seconds))
+        phase_examples(device, tmp)
     print(f"timing: {json.dumps(timing)}")
     print(f"stretch: {json.dumps(stretch)}")
     print(f"mesh timing: {json.dumps(mesh_timing)}")
+    print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14): "
+          f"{json.dumps(launches)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [{
@@ -1674,7 +2104,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": launches["fetch_interp"],
         "max_abs_err": err,
         "inputs": SYNTHETIC_INPUTS,
         "ms": timing[f"kernel_ms_{synthetic}"],
@@ -1689,6 +2119,21 @@ def main() -> int:
         # tap at p = region-1 crossing into region B, exact zeros outside
         # [0, 2*region-1) and the int16 dequantisation
         "library_ms": None,
+    }, {
+        "name": "lane_mixdown",
+        "route": "cuda",
+        "source": MIXDOWN_SOURCE,
+        "replaces": MIXDOWN_REPLACES,
+        "launches": launches["lane_mixdown"],
+        "max_abs_err": mix_err,
+        "inputs": MIXDOWN_INPUTS,
+        "ms": timing[f"mix_kernel_ms_{session}"],
+        "plain_ms": timing[f"mix_plain_ms_{session}"],
+        "bound_ms": timing[f"mix_bound_ms_{session}"],
+        "bound_by": timing[f"mix_bound_by_{session}"],
+        # the one-hot torch.matmul the kernel replaces: the same function,
+        # summed in cuBLAS's order
+        "library_ms": timing[f"mix_library_ms_{session}"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

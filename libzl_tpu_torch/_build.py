@@ -4,12 +4,13 @@ The kernels (`csrc/*.cu`) expose a plain C interface and are loaded with
 ctypes; nothing includes PyTorch's headers, so a build takes seconds. The
 shared library is built on first use into `build/libzl_tpu_torch/` under the
 repository root and named after a hash of the sources and flags, so a stale
-build never loads. A failed build raises with the compiler's output; there is
-no fallback.
+build never loads. Each source compiles in its own nvcc process, all started
+together, and one more links the objects. A failed build raises with the
+compiler's output; there is no fallback.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/libzl_tpu_torch/libzl_tpu_torch_<hash>.so \
-         libzl_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <source>.o libzl_tpu_torch/csrc/<source>.cu
+    nvcc -shared -o build/libzl_tpu_torch/libzl_tpu_torch_<hash>.so *.o
 
 The port's C ABI library (`build_shim`) is `native/libzl_shim.cpp`, compiled
 unchanged through `csrc/libzl_shim_torch.cpp`, with the host C++ compiler and
@@ -110,15 +111,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of these exact sources exists."""
+    """Compile the kernels unless a build of these exact sources exists:
+    one `nvcc -c` a source, all running at once, then one link."""
     global build_log, build_seconds
     so = library_path()
     if so.is_file():
         return so
     nvcc = find_nvcc()
-    build_log, build_seconds = _compile(
-        lambda out: [nvcc, *NVCC_FLAGS, "-o", out,
-                     *[str(s) for s in sources()]], so, "nvcc")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.objs")
+    objs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        jobs = []
+        for src in sources():
+            cmd = [nvcc, *compile_flags, "-c", "-o",
+                   str(objs / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link_log, _ = _compile(
+            lambda out: [nvcc, "-shared", "-o", out,
+                         *sorted(str(o) for o in objs.glob("*.o"))],
+            so, "nvcc link")
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+    build_log = "".join(logs) + link_log
+    build_seconds = time.perf_counter() - t0
     return so
 
 
@@ -129,6 +156,11 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = bind_fetch(ctypes.CDLL(str(build())))
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        # contrib, lane, lane stride, init, out, H, V, E, L, stream
+        lib.zl_lane_mixdown.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64,
+                                        i64, i64, ptr]
+        lib.zl_lane_mixdown.restype = ctypes.c_int
         # B, region, int16 bank -> staged samples per channel and voice
         lib.zl_fetch_interp_stage_cap.argtypes = [ctypes.c_int64,
                                                   ctypes.c_int64,

@@ -30,9 +30,11 @@ def resolve_device(device) -> torch.device:
 
     Raises when CUDA is asked for and no CUDA device is present: a run that
     was meant for the card never lands on the CPU. On CUDA, TF32 matmuls are
-    turned off and the float32 matmul precision must be "highest": the lane
-    mixdown is an f32 matmul, and TF32's ~3 decimal digits would break the
-    mix tolerance (rtol 1e-5).
+    turned off and the float32 matmul precision must be "highest". The
+    render itself runs no matmul (the lane mixdown is ops/mixdown's in-order
+    kernel); the guard keeps any float32 product that a caller or a later
+    path runs on the card at full precision, since TF32's ~3 decimal digits
+    would break the reference's mix tolerance (rtol 1e-5).
     """
     dev = torch.device(device)
     if dev.type == "cuda":

@@ -28,9 +28,12 @@ at B=128, H=2 at B=1024), bucketed prefix rendering and the ratio ladder.
 `mesh` (parallel/sharding.make_mesh) shards the voice axis over the mesh's
 devices from this one process, as the reference's single controller does:
 every per-block and horizon dispatch renders each shard's voices on its own
-device and sums the lane mixes on the first, which is the engine's device.
-Without a mesh the engine's one device is the mesh: one shard, the same
-dispatch.
+device and folds them into the lane mix carried from the shard before, in
+pool voice order (ops/mixdown.py), so a mesh gives the unsharded engine's
+bits; the outputs land on the first device, which is the engine's. Without
+a mesh the engine's one device is the mesh: one shard, the same dispatch.
+`render_dispatches` counts the per-block and horizon renders (each launches
+the lane mixdown once a shard).
 
 Two of the reference's faults are not carried over: the speculation depth
 (LIBZL_TPU_SPEC_DEPTH) is parsed at engine construction and a bad value
@@ -313,7 +316,7 @@ class AudioEngine:
         self.device = resolve_device(device)
         # the voice axis shards over the mesh (default: the engine's one
         # device); the engine's device is the mesh's first, where the lane
-        # mixes are summed and the strip/meter tail runs (parallel/sharding.py)
+        # mix lands and the strip/meter tail runs (parallel/sharding.py)
         if mesh is None:
             mesh = sharding.Mesh((sharding.canonical_device(self.device),))
         else:
@@ -464,6 +467,9 @@ class AudioEngine:
         # _stats_lock, as it does to the spec failure count.
         self._stats_lock = threading.Lock()
         self.fetch_dispatches = {"windows": 0, "gather": 0}
+        # renders dispatched (each launches the lane mixdown once a shard:
+        # a per-block block, or a horizon's H slices stacked)
+        self.render_dispatches = {"block": 0, "horizon": 0}
         # speculative builds or dispatches that raised (the engine then
         # falls back to a synchronous horizon) and the last one's traceback
         self.spec_failures = 0
@@ -850,9 +856,10 @@ class AudioEngine:
     def _fetch_kind(self, fetch: str) -> str:
         return "gather" if self.quirk_gain else fetch.partition(":")[0]
 
-    def _count_fetch(self, kind: str, blocks: int) -> None:
+    def _count_render(self, kind: str, blocks: int, dispatch: str) -> None:
         with self._stats_lock:
             self.fetch_dispatches[kind] += blocks
+            self.render_dispatches[dispatch] += 1
 
     def _note_spec_failure(self, exc: BaseException) -> None:
         with self._stats_lock:
@@ -881,7 +888,7 @@ class AudioEngine:
             fetch, rmax, bucket = "gather", self.max_pitch_ratio, None
         V = self.pool.num_voices
         n = V if bucket is None else min(bucket, V)
-        self._count_fetch(self._fetch_kind(fetch), 1)
+        self._count_render(self._fetch_kind(fetch), 1, "block")
         # ONE host->device buffer per shard and block (its rows of the
         # bucket's prefix of the pool): the program pair fuses into a single
         # int32 matrix (f32 columns bit-cast), uploaded from pinned memory on
@@ -1080,7 +1087,7 @@ class AudioEngine:
                 base_cols=K, quirk_gain=quirk, fetch=fetch,
                 max_pitch_ratio=rmax, pad_voices_to=V,
             )
-            self._count_fetch(kind, H)
+            self._count_render(kind, H, "horizon")
             return list(outs)
 
         return dispatch
@@ -1353,20 +1360,20 @@ class AudioEngine:
         return path
 
     def warmup(self) -> int:
-        """Build the CUDA kernel (windows fetch on the card), then render —
-        from the current pool state, without advancing it — every (bucket,
-        rung, kind) the session can dispatch, exactly the reference's work
-        list: per-block renders (top rung only in a lookahead engine),
-        horizons at each bucket's allowed rungs, and the full-pool gather
-        fallback of a windows engine. A lookahead engine also starts both
-        spec workers and renders the last item on the dispatch thread, so
-        that thread's CUDA context and cuBLAS handle exist before the
-        session. Ends in one real device->host transfer. Returns the number
-        of renders (also `warmed_graphs`, in stats())."""
-        if self.device.type == "cuda" and self.fetch.startswith("windows"):
+        """Build the CUDA kernels (the lane mixdown on every card render,
+        the windows fetch too), then render — from the current pool state,
+        without advancing it — every (bucket, rung, kind) the session can
+        dispatch, exactly the reference's work list: per-block renders (top
+        rung only in a lookahead engine), horizons at each bucket's allowed
+        rungs, and the full-pool gather fallback of a windows engine. A
+        lookahead engine also starts both spec workers and renders the last
+        item on the dispatch thread, so that thread's CUDA context exists
+        before the session. Ends in one real device->host transfer. Returns
+        the number of renders (also `warmed_graphs`, in stats())."""
+        if self.device.type == "cuda":
             from .. import _build
 
-            # before any worker can reach the kernel's first load
+            # before any worker can reach the kernels' first load
             _build.load()
         prog = self.pool.build_program(
             block_start_sample=float(self.clock.sample_position),

@@ -8,11 +8,14 @@
                                                     peaks, RMS
 
 PyTorch runs eagerly, so there is nothing to jit. `render_block_fused` is the
-engine's per-block entry point (one program upload per block) and
-`render_horizon_onebuf` its lookahead-horizon entry point (one upload of the
-base program and the compact dynamics per H blocks). A horizon is H calls of
-the same per-block math, one per slice's program, so each slice is
-bit-identical to a per-block render of that program.
+per-block render of one program upload and `render_horizon_onebuf` the
+lookahead horizon's (one upload of the base program and the compact dynamics
+per H blocks); the engine dispatches both through parallel/sharding.py, on a
+one-device mesh when it has none. A horizon is H calls of the same per-block
+math, one per slice's program, so each slice is bit-identical to a per-block
+render of that program. Every lane mix here, in a horizon slice and in a
+sharded render is ops/mixdown.lane_mixdown's fold in pool voice order, so
+all of them sum a lane's voices in one order.
 """
 
 from __future__ import annotations

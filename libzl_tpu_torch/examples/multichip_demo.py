@@ -2,10 +2,12 @@
 
 The port of examples/multichip_demo.py. One process drives every device of
 the mesh: each shard renders its voices on its own device (the windows
-kernel on a card) and the lane mixes are summed on the first. By default
+kernel on a card) and folds them into the lane mix carried from the shard
+before (the lane mixdown kernel on a card), so the mix has the unsharded
+engine's bits; the outputs land on the first device. By default
 the mesh is every visible card; `--shards N` repeats the one device N
 times instead, which exercises the same split, per-shard render and
-reduction on a single card or on the CPU.
+carried fold on a single card or on the CPU.
 
     python -m libzl_tpu_torch.examples.multichip_demo [out.wav]
         [--device cuda|cpu] [--shards N] [--voices V] [--seconds S]

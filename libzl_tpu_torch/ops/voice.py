@@ -3,9 +3,12 @@
 The counterpart of libzl_tpu/ops/voice.py. All sampler voices for one block
 over a [V voices, B frames] grid: segment positions, closed-form ADSR, the
 interpolated sample fetch (gather or the windows kernel), gain, M/S pan,
-per-voice peaks and the one-hot lane mixdown. The formulas, their f32 order
-and the reference's routing rules are the reference's; see its module
-docstring for the semantics.
+per-voice peaks and the lane mixdown. The formulas, their f32 order and the
+reference's routing rules are the reference's; see its module docstring for
+the semantics. The one exception is the mixdown: the reference's one-hot
+product leaves its summation order to the library, the port's
+(ops/mixdown.py) sums each lane's voices in pool order, so a mesh gives the
+unsharded engine's bits.
 
 The host half is the reference's numpy code, copied verbatim: the packed
 program layout (`VoiceProgram`, `pack_program`, `fuse_packed`,
@@ -13,7 +16,7 @@ program layout (`VoiceProgram`, `pack_program`, `fuse_packed`,
 the host half of the compact lookahead horizon (`pack_horizon_dynamics`,
 `horizon_dyn_cols`), `pack_strips` and `empty_program`. The device half
 (`split_fused`, `unpack_horizon_slice`, `horizon_programs`,
-`positions_block`, `render_voices`) runs on tensors.
+`positions_block`, `voice_contrib`, `render_voices`) runs on tensors.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .fetch_windows import (
     parse_suffix,
     region_rows,
 )
+from .mixdown import lane_mixdown
 
 # ----------------------------------------------------------- host half
 
@@ -526,12 +530,36 @@ def render_voices(
     fetch: str = "gather",
     max_pitch_ratio: float = 4.0,
 ):
-    """Render all voices for one block.
+    """Render all voices for one block: `voice_contrib`, then the in-order
+    lane mixdown (ops/mixdown.lane_mixdown: the CUDA kernel for CUDA
+    tensors, its plain version on the CPU).
+    Returns (mix [C, B, 2] f32, voice_peak [V] f32[, contrib [V, B, 2]])."""
+    voice_peak, contrib = voice_contrib(
+        sound_data, prog, block_frames, quirk_gain=quirk_gain, fetch=fetch,
+        max_pitch_ratio=max_pitch_ratio)
+    mix = lane_mixdown(contrib, prog.lane.contiguous(), num_lanes)
+    if return_contrib:
+        return mix, voice_peak, contrib
+    return mix, voice_peak
+
+
+def voice_contrib(
+    sound_data,
+    prog: VoiceProgram,
+    block_frames: int,
+    quirk_gain: bool = False,
+    fetch: str = "gather",
+    max_pitch_ratio: float = 4.0,
+    out=None,
+):
+    """Every voice's stereo contribution to one block, before the mixdown.
 
     fetch: "gather" (tensor indexing) or "windows[:suffix]" (fetch_interp:
     the CUDA kernel for CUDA tensors, its plain version on the CPU; the
     windows path needs the planar bank with the region tail guard).
-    Returns (mix [C, B, 2] f32, voice_peak [V] f32[, contrib [V, B, 2]])."""
+    `out` ([V, B, 2] f32, contiguous) receives contrib, as one slice of a
+    horizon's stacked contributions does.
+    Returns (voice_peak [V] f32, contrib [V, B, 2] f32)."""
     B = block_frames
     dev = sound_data.device
     k = torch.arange(B, dtype=_I32, device=dev)[None, :]
@@ -612,15 +640,5 @@ def render_voices(
     # (lib/SamplerSynthVoice.cpp:213)
     voice_peak = torch.clamp_min(torch.amax(l + r, dim=1), 0.0)
 
-    contrib = torch.stack([l, r], dim=-1)  # [V, B, 2]
-
-    # mixdown by sampler channel lane: one-hot [C, V] x [V, 2B] -> [C, B, 2]
-    # (a plain f32 matmul, as the reference leaves this product to XLA)
-    lanes = torch.arange(num_lanes, dtype=_I32, device=dev)[:, None]
-    onehot = (lanes == prog.lane[None, :]).to(_F32)
-    mix = torch.matmul(onehot, contrib.reshape(contrib.shape[0], -1))
-    mix = mix.reshape(num_lanes, B, 2)
-
-    if return_contrib:
-        return mix, voice_peak, contrib
-    return mix, voice_peak
+    contrib = torch.stack([l, r], dim=-1, out=out)  # [V, B, 2]
+    return voice_peak, contrib

@@ -12,17 +12,22 @@ in the reference does (the C ABI's one runtime, examples/multichip_demo.py).
   repeat: `make_mesh(devices=["cuda:0"] * 4)` splits the pool into four
   shards on one card, and `["cpu"] * 4` does the same on the CPU.
 - Each shard's contiguous block of program rows is uploaded to its device
-  and rendered there by `render_voices`, any fetch (the windows kernel
+  and rendered there by `voice_contrib`, any fetch (the windows kernel
   included), inside `torch.cuda.device(d)`, on that device's current stream.
-- The shards' lane mixes [12, B, 2] (a horizon: [H, 12, B, 2], one stacked
-  reduction for its H slices) are copied to the first device and summed in
-  shard order there; PyTorch's cross-device copy waits for the source
-  device's current stream, so the sum sees every shard's render. The
-  reduction is not torch.distributed or NCCL: their order is not the shard
-  order. `finish_block` then runs once on the first device, and the voice
-  peaks are concatenated in voice order and padded to the pool.
+- The lane mix is a carried fold (ops/mixdown.py): shard 0's mixdown starts
+  from zeros, and each later shard's starts from the previous shard's
+  [12, B, 2] result (a horizon: [H, 12, B, 2], one launch for its H
+  slices), copied to its device. PyTorch's cross-device copy waits for the
+  source device's current stream, so each fold sees every earlier shard's
+  adds, and each shard's contributions are enqueued before the copy, so the
+  devices render in parallel and wait only at the mixdown. The k shards
+  then make the adds of one unsharded mixdown in the same order: the mesh
+  is bit-equal to the unsharded engine for any k, repeated devices and
+  cards alike. It is not torch.distributed or NCCL: their order is theirs.
+  `finish_block` then runs once on the first device, and the voice peaks
+  are concatenated in voice order and padded to the pool.
 - The engine dispatches every render through these two functions. Its
-  default mesh is its one device: one shard, nothing reduced, stacked or
+  default mesh is its one device: one shard, nothing copied or
   concatenated, so the launches are those of the render alone.
 
 The reference's `make_sharded_render` / `make_sharded_packed_render` (a
@@ -44,6 +49,7 @@ from ..constants import DEFAULT_BLOCK_FRAMES
 from ..device import resolve_device
 from ..engine import render as render_mod
 from ..ops import voice as voice_ops
+from ..ops.mixdown import lane_mixdown
 
 
 def canonical_device(device) -> torch.device:
@@ -113,16 +119,6 @@ def _shard_rows(mesh: Mesh, rows: int) -> int:
     return rows // mesh.size
 
 
-def _reduce(mesh: Mesh, parts: list) -> torch.Tensor:
-    """Sum per-shard tensors on the mesh's first device, in shard order (one
-    shard: its part as it is)."""
-    dev0 = mesh.devices[0]
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(dev0, non_blocking=True)
-    return total
-
-
 def _concat(mesh: Mesh, parts: list, dim: int = 0) -> torch.Tensor:
     """Concatenate per-shard tensors on the mesh's first device, in shard
     order (one shard: its part as it is, no copy)."""
@@ -130,6 +126,14 @@ def _concat(mesh: Mesh, parts: list, dim: int = 0) -> torch.Tensor:
         return parts[0]
     dev0 = mesh.devices[0]
     return torch.cat([p.to(dev0, non_blocking=True) for p in parts], dim=dim)
+
+
+def _carry(mix, dev: torch.device):
+    """The previous shard's lane mix as the next shard's starting
+    accumulator on `dev` (None for the first shard; no copy on the same
+    device). The copy is ordered after the source device's current stream,
+    so it holds every add of the shards before."""
+    return None if mix is None else mix.to(dev, non_blocking=True)
 
 
 def render_block_sharded(
@@ -148,24 +152,27 @@ def render_block_sharded(
     [V, K], ops/voice.fuse_packed) whose V rows split into mesh.size
     contiguous blocks; `sound_by_device` maps each mesh device to its copy
     of the bank; `strips_packed` lies on mesh.devices[0], where the outputs
-    land."""
+    land. Each shard renders its voices' contributions, then folds them
+    into the lane mix carried from the shard before (one mixdown launch a
+    shard)."""
     s = _shard_rows(mesh, prog_fused.shape[0])
-    mixes, peaks = [], []
+    mix, peaks = None, []
     for i, dev in enumerate(mesh.devices):
         with _on(dev):
             fused = convert.upload(prog_fused[i * s:(i + 1) * s], dev)
             prog = voice_ops.unpack_program(*voice_ops.split_fused(fused))
-            lane_mix, voice_peaks = voice_ops.render_voices(
+            voice_peaks, contrib = voice_ops.voice_contrib(
                 sound_by_device[dev], prog, block_frames,
                 quirk_gain=quirk_gain, fetch=fetch,
                 max_pitch_ratio=max_pitch_ratio,
             )
-        mixes.append(lane_mix)
+            mix = lane_mixdown(contrib, prog.lane.contiguous(),
+                               init=_carry(mix, dev))
         peaks.append(voice_peaks)
     dev0 = mesh.devices[0]
     with _on(dev0):
         out = render_mod.finish_block(
-            _reduce(mesh, mixes), voice_ops.unpack_strips(strips_packed),
+            _carry(mix, dev0), voice_ops.unpack_strips(strips_packed),
             _concat(mesh, peaks))
     return render_mod.pad_voice_peaks(out, pad_voices_to,
                                       prog_fused.shape[0])
@@ -188,34 +195,36 @@ def render_horizon_sharded(
     counterpart, one-buffer layout): `hz_fused` is the host's base program
     and compact dynamics in one int32 [V, base_cols + 1+(H-1)*D] array; each
     shard uploads its rows and rebuilds its H slices' programs
-    (ops/voice.horizon_programs); the H slices' lane mixes ride one stacked
-    [H, 12, B, 2] reduction. Each slice is the per-block math on its own
-    program, as in render_horizon_onebuf."""
+    (ops/voice.horizon_programs), renders each slice's contributions into
+    one stacked [H, V/k, B, 2] buffer and folds them with one mixdown launch
+    into the [H, 12, B, 2] lane mixes carried from the shard before (the
+    counterpart of the reference's one stacked psum). Each slice is the
+    per-block math on its own program, as in render_horizon_onebuf."""
     s = _shard_rows(mesh, hz_fused.shape[0])
-    mixes, peaks = [], []
+    mix, peaks = None, []
     for i, dev in enumerate(mesh.devices):
         with _on(dev):
             hz = convert.upload(hz_fused[i * s:(i + 1) * s], dev)
             progs = voice_ops.horizon_programs(
                 hz[:, :base_cols], hz[:, base_cols:], slices, block_frames)
-            lms, vps = [], []
-            for prog in progs:
-                lm, vp = voice_ops.render_voices(
-                    sound_by_device[dev], prog, block_frames,
-                    quirk_gain=quirk_gain, fetch=fetch,
-                    max_pitch_ratio=max_pitch_ratio,
-                )
-                lms.append(lm)
-                vps.append(vp)
-        mixes.append(lms)
+            contrib = torch.empty((slices, s, block_frames, 2),
+                                  dtype=torch.float32, device=dev)
+            vps = [voice_ops.voice_contrib(
+                sound_by_device[dev], prog, block_frames,
+                quirk_gain=quirk_gain, fetch=fetch,
+                max_pitch_ratio=max_pitch_ratio, out=contrib[h])[0]
+                for h, prog in enumerate(progs)]
+            # a horizon's slices share the base program's lanes
+            mix = lane_mixdown(contrib, progs[0].lane.contiguous(),
+                               init=_carry(mix, dev))
         peaks.append(vps)
     dev0 = mesh.devices[0]
     with _on(dev0):
         strips = voice_ops.unpack_strips(strips_packed)
-        if mesh.size == 1:  # the slices as they are: nothing to reduce
-            lane_mixes, voice_peaks = mixes[0], peaks[0]
+        lane_mixes = _carry(mix, dev0)
+        if mesh.size == 1:  # the slices' peaks as they are
+            voice_peaks = peaks[0]
         else:
-            lane_mixes = _reduce(mesh, [torch.stack(m) for m in mixes])
             voice_peaks = _concat(mesh, [torch.stack(p) for p in peaks], 1)
         outs = tuple(
             render_mod.finish_block(lane_mixes[h], strips, voice_peaks[h])

@@ -223,6 +223,30 @@ def test_lookahead_bucket_tolerance():
     assert eng_a.stats()["slo_by_kind"]["adopt"][1] >= 1
 
 
+@pytest.mark.parametrize("lookahead", [0, 8])
+def test_bucketed_sparse_session_is_bit_equal(lookahead):
+    """A sparse session (12 voices of a 128-voice pool, the 64-voice
+    bucket) against voice_buckets="off", per-block and through horizon
+    builds, adoptions and emission: every output bit-equal. The reference
+    allows atol 1e-5 (tests/test_voice_buckets.py:228-244); the port's
+    in-order lane mixdown adds only +0.0 for the idle tail, which changes
+    no bit."""
+    eng_a, clip_a = _make_engine(lookahead=lookahead)
+    eng_b, clip_b = _make_engine(lookahead=lookahead, voice_buckets="off")
+    for eng, clip in ((eng_a, clip_a), (eng_b, clip_b)):
+        for i in range(12):
+            _cmd(eng, clip, 40 + i, channel=i % 10)
+    for b in range(24):
+        ra, rb = eng_a.process_block(), eng_b.process_block()
+        _assert_outputs_equal(ra, rb, f"block {b}")
+        assert eng_a._render_bucket() == 64
+    assert np.abs(ra.outputs.master.numpy()).max() > 0.05
+    if lookahead:
+        assert eng_a.stats()["slo_by_kind"]["adopt"][1] >= 1
+    eng_a.drain_speculation()
+    eng_b.drain_speculation()
+
+
 # ------------------------------------------------------------ ratio ladder
 
 
@@ -276,7 +300,8 @@ def test_ratio_ladder_dispatch_is_output_neutral(monkeypatch, lookahead):
     AudioEngine._spec_sim_executor().submit(lambda: None).result()
     AudioEngine._spec_executor().submit(lambda: None).result()
     rmaxes = []
-    orig = voice_ops.render_voices
+    # every dispatch renders each shard's contributions through voice_contrib
+    orig = voice_ops.voice_contrib
 
     def spy(*a, **k):
         rmaxes.append(k["max_pitch_ratio"])
@@ -286,11 +311,11 @@ def test_ratio_ladder_dispatch_is_output_neutral(monkeypatch, lookahead):
     for ladder in ("auto", "off"):
         e = _ladder_engine(67, lookahead=lookahead, ratio_ladder=ladder)
         e.RUNG_MIN_SHARD_VOICES = 16
-        monkeypatch.setattr(voice_ops, "render_voices", spy)
+        monkeypatch.setattr(voice_ops, "voice_contrib", spy)
         rmaxes.clear()
         outs[ladder] = np.concatenate(
             [e.process_block().outputs.master.numpy() for _ in range(12)])
-        monkeypatch.setattr(voice_ops, "render_voices", orig)
+        monkeypatch.setattr(voice_ops, "voice_contrib", orig)
         e.drain_speculation()
         if ladder == "auto":
             seen = set(rmaxes)

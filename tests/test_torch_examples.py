@@ -60,9 +60,28 @@ def test_multichip_demo(tmp_path):
 def test_examples_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         return
-    for name in ("groovebox_demo", "multichip_demo"):
-        proc = _run([f"libzl_tpu_torch.examples.{name}",
-                     str(tmp_path / "x.wav")], tmp_path, ok=False)
+    for name, argv in (("groovebox_demo", [str(tmp_path / "x.wav")]),
+                       ("multichip_demo", [str(tmp_path / "x.wav")]),
+                       ("midi_live_demo", [str(tmp_path / "x.wav")]),
+                       ("live_rig", ["--sink", f"file:{tmp_path}/x.wav"])):
+        proc = _run([f"libzl_tpu_torch.examples.{name}", *argv], tmp_path,
+                    ok=False)
         assert proc.returncode != 0
         assert "CUDA" in proc.stderr or "is_available" in proc.stderr
         assert not (tmp_path / "x.wav").exists()
+
+
+def test_live_rig(tmp_path):
+    proc = _run(["libzl_tpu_torch.examples.live_rig", "--device", "cpu",
+                 "--seconds", "1"], tmp_path)
+    assert "live rig OK" in proc.stdout
+
+
+def test_midi_live_demo(tmp_path):
+    out = tmp_path / "midi.wav"
+    proc = _run(["libzl_tpu_torch.examples.midi_live_demo", str(out),
+                 "--device", "cpu", "--seconds", "1"], tmp_path)
+    assert "router->sampler path on cpu" in proc.stdout
+    audio = read_audio(str(out))
+    assert audio.samples.shape[0] >= 40000
+    assert float(np.abs(audio.samples).max()) > 0.005

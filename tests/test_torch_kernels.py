@@ -1,13 +1,16 @@
-"""The windows fetch kernel's contract, its plain PyTorch version and its
-build, with no JAX in the file: the tests marked `cuda` run on the card with
+"""The port's two kernels (the windows fetch and the in-order lane mixdown),
+their plain PyTorch versions and their build, with no JAX in the file: the
+tests marked `cuda` run on the card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
 (`--noconftest`: tests/conftest.py imports JAX, which the card's machine
 does not have). Without a card they skip; the rest run on the CPU in
-Tier-1. The plain version is held against a float64 two-tap oracle with
+Tier-1. The plain fetch is held against a float64 two-tap oracle with
 hostile positions (atol 3e-6, tests/test_fetch_windows.py:294), out-of-range
-lanes exactly 0; on the card the kernel is held against the plain version.
+lanes exactly 0; the plain mixdown against a scalar float32 fold, bit for
+bit. On the card each kernel is held against its plain version: the fetch
+at atol 3e-6, the mixdown bit for bit.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from libzl_tpu_torch import _build
 from libzl_tpu_torch.ops import fetch_windows as fw
+from libzl_tpu_torch.ops import mixdown as md
 
 
 def hostile_inputs(seed: int, V: int, B: int, n: int, dtype=np.float32,
@@ -267,3 +271,170 @@ def test_horizon_engine_on_card_matches_per_block():
     assert pb.fetch_dispatches["gather"] == 0
     assert fw.fetch_interp.launches - before == \
         hz.fetch_dispatches["windows"] + pb.fetch_dispatches["windows"]
+
+
+# ------------------------------------------------------ the lane mixdown
+
+
+def mixdown_inputs(seed: int, V: int, B: int, H: int = 0,
+                   stray: bool = True, init: bool = False,
+                   per_slice_lanes: bool = False):
+    """contrib [V, B, 2] (or [H, V, B, 2]) with exact zeros and -0.0 mixed
+    in, lanes in [0, 12) plus (`stray`) lanes outside it, and an optional
+    non-zero init of the output's shape."""
+    rng = np.random.default_rng(seed)
+    shape = ((H,) if H else ()) + (V, B, 2)
+    contrib = rng.standard_normal(shape).astype(np.float32)
+    contrib[rng.random(shape) < 0.1] = 0.0
+    contrib[rng.random(shape) < 0.05] = -0.0
+    lane_shape = (H, V) if H and per_slice_lanes else (V,)
+    lane = rng.integers(0, 12, lane_shape)
+    if stray:
+        odd = rng.random(lane_shape) < 0.15
+        lane = np.where(odd, rng.choice([-7, -1, 12, 13, 100], lane_shape),
+                        lane)
+    out_shape = ((H,) if H else ()) + (12, B, 2)
+    start = (rng.standard_normal(out_shape).astype(np.float32)
+             if init else None)
+    return contrib, lane.astype(np.int32), start
+
+
+def scalar_fold(contrib, lane, init=None):
+    """The mixdown's contract written out: per slice and lane, a float32
+    fold of the lane's voices in index order from init (or +0.0)."""
+    stacked = contrib.ndim == 4
+    c = contrib if stacked else contrib[None]
+    H, V = c.shape[:2]
+    lanes = np.broadcast_to(lane, (H, V))
+    acc = (np.zeros((H, 12) + c.shape[2:], np.float32) if init is None
+           else (init if stacked else init[None]).copy())
+    for h in range(H):
+        for v in range(V):
+            ln = int(lanes[h, v])
+            if 0 <= ln < 12:
+                acc[h, ln] = acc[h, ln] + c[h, v]   # float32, round to nearest
+    return acc if stacked else acc[0]
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    dict(V=40, B=16), dict(V=40, B=16, init=True),
+    dict(V=33, B=8, H=3), dict(V=33, B=8, H=3, per_slice_lanes=True,
+                               init=True),
+    dict(V=0, B=8), dict(V=5, B=4, stray=False)])
+def test_mixdown_plain_is_the_in_order_fold(case):
+    contrib, lane, init = mixdown_inputs(21, **case)
+    got = md.lane_mixdown_plain(
+        torch.from_numpy(contrib), torch.from_numpy(lane),
+        init=None if init is None else torch.from_numpy(init)).numpy()
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(scalar_fold(contrib, lane, init)))
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 8])
+def test_mixdown_carried_over_chunks_is_one_fold(k):
+    """The mesh's carried fold: k chunks of the voices, each starting from
+    the one before, give the bits of one call over all of them, for any k
+    (k need not divide V)."""
+    contrib, lane, _ = mixdown_inputs(22, 61, 32, H=4)
+    c, ln = torch.from_numpy(contrib), torch.from_numpy(lane)
+    want = md.lane_mixdown_plain(c, ln)
+    acc = None
+    for part in np.array_split(np.arange(61), k):
+        lo, hi = int(part[0]), int(part[-1]) + 1
+        acc = md.lane_mixdown(c[:, lo:hi].contiguous(), ln[lo:hi].contiguous(),
+                              init=acc)
+    assert torch.equal(acc, want)
+
+
+def test_mixdown_ignores_an_idle_tail():
+    """Voices past the rendering ones contribute +0.0: a prefix and the
+    whole pool give the same bits (bucketed dispatch)."""
+    contrib, lane, _ = mixdown_inputs(23, 48, 16)
+    contrib[30:] = 0.0
+    c, ln = torch.from_numpy(contrib), torch.from_numpy(lane)
+    assert torch.equal(md.lane_mixdown(c[:30].contiguous(), ln[:30].contiguous()),
+                       md.lane_mixdown(c, ln))
+
+
+def test_lane_mixdown_on_cpu_is_the_plain_version():
+    contrib, lane, init = mixdown_inputs(24, 50, 16, H=2, init=True)
+    args = (torch.from_numpy(contrib), torch.from_numpy(lane))
+    before = md.lane_mixdown.launches
+    assert torch.equal(md.lane_mixdown(*args, init=torch.from_numpy(init)),
+                       md.lane_mixdown_plain(*args,
+                                             init=torch.from_numpy(init)))
+    assert md.lane_mixdown.launches == before
+
+
+def test_lane_mixdown_refuses_other_devices():
+    contrib, lane, _ = mixdown_inputs(25, 8, 4)
+    with pytest.raises(ValueError):
+        md.lane_mixdown(torch.from_numpy(contrib).to("meta"),
+                        torch.from_numpy(lane).to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(V=1024, B=128), dict(V=1024, B=1024, init=True),
+    dict(V=1024, B=128, H=16), dict(V=256, B=128, H=16, init=True,
+                                    per_slice_lanes=True),
+    dict(V=300, B=100, init=True), dict(V=1, B=1), dict(V=0, B=64, init=True),
+    dict(V=513, B=1000, stray=False)])
+def test_mixdown_kernel_matches_plain_on_card(case):
+    """Bit-equal to the plain version: 256 voices a chunk (V=300, 513
+    leave a partial one), frames not a multiple of the CTA (B=100, 1000),
+    stacked horizons with shared and per-slice lanes, lanes outside
+    [0, 12), a non-zero init, no voices at all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, init = mixdown_inputs(31, **case)
+    c, ln = torch.from_numpy(contrib).cuda(), torch.from_numpy(lane).cuda()
+    start = None if init is None else torch.from_numpy(init).cuda()
+    before = md.lane_mixdown.launches
+    got = md.lane_mixdown(c, ln, init=start)
+    want = md.lane_mixdown_plain(c, ln, init=start)
+    torch.cuda.synchronize()
+    assert md.lane_mixdown.launches == before + 1
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(_bits(got.cpu().numpy()),
+                                  _bits(want.cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_mixdown_kernel_carried_over_shards_on_card():
+    """Four chunks of a 1024-voice horizon, each kernel call starting from
+    the one before: the bits of one call over the pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, _ = mixdown_inputs(32, 1024, 128, H=4)
+    c, ln = torch.from_numpy(contrib).cuda(), torch.from_numpy(lane).cuda()
+    want = md.lane_mixdown(c, ln)
+    acc = None
+    for lo in range(0, 1024, 256):
+        acc = md.lane_mixdown(c[:, lo:lo + 256].contiguous(),
+                              ln[lo:lo + 256].contiguous(), init=acc)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want)
+
+
+@pytest.mark.cuda
+def test_mixdown_kernel_refuses_what_it_does_not_take():
+    """A CUDA tensor never reaches the plain version: a CPU init, a float64
+    contrib, int64 lanes or a non-contiguous contrib raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, init = mixdown_inputs(33, 64, 32, init=True)
+    c, ln = torch.from_numpy(contrib).cuda(), torch.from_numpy(lane).cuda()
+    with pytest.raises(ValueError):
+        md.lane_mixdown(c, ln, init=torch.from_numpy(init))
+    with pytest.raises(TypeError):
+        md.lane_mixdown(c.double(), ln)
+    with pytest.raises(TypeError):
+        md.lane_mixdown(c, ln.long())
+    with pytest.raises(ValueError):
+        md.lane_mixdown(c.transpose(0, 1).contiguous().transpose(0, 1), ln)

@@ -113,3 +113,25 @@ def test_render_block_fused_matches_jax(B, V, pad):
         np.testing.assert_allclose(g[name], w[name], rtol=1e-5, atol=1e-7,
                                    err_msg=name)
     assert np.abs(g["master"]).max() > 0.01
+
+
+@pytest.mark.parametrize("fetch", ["gather", "windows"])
+def test_render_voices_mix_matches_reference(fetch):
+    """The port's render_voices, whose mix is the in-order lane mixdown,
+    against the reference's render_voices (jax, one-hot product) on
+    __graft_entry__._example_inputs: mix rtol 1e-5, atol 1e-7
+    (tests/test_voice_render.py:214-217); its contributions folded by
+    lane_mixdown_plain give the same bits."""
+    from libzl_tpu_torch.ops import voice as tv
+    from libzl_tpu_torch.ops.mixdown import lane_mixdown_plain
+
+    V, B = 128, 128
+    sound, prog, _ = graft._example_inputs(V, B, 1 << 15)
+    want = np.asarray(ref_voice.render_voices(np, sound, prog, B)[0])
+    fused = torch.from_numpy(ref_voice.fuse_packed(
+        *ref_voice.pack_program(prog)))
+    tp = tv.unpack_program(*tv.split_fused(fused))
+    mix, _, contrib = tv.render_voices(torch.from_numpy(sound), tp, B,
+                                       fetch=fetch, return_contrib=True)
+    np.testing.assert_allclose(mix.numpy(), want, rtol=1e-5, atol=1e-7)
+    assert torch.equal(mix, lane_mixdown_plain(contrib, tp.lane))

@@ -5,8 +5,9 @@ block by block), so positions cross loop wraps, short loops that wrap
 several times per superblock, and beat-quantized resets past the segment
 horizon (the bq_reset columns). Tolerances are the reference's own
 (tests/test_voice_render.py:214-217): per-voice contributions rtol 2e-6 /
-atol 1e-9, the lane mixdown (a matmul, summed in another order) rtol 1e-5 /
-atol 1e-7; positions and the program round trip are bit-equal.
+atol 1e-9, the lane mixdown (the port's in-order fold, ops/mixdown.py,
+against the reference's one-hot product, summed in the library's order)
+rtol 1e-5 / atol 1e-7; positions and the program round trip are bit-equal.
 """
 
 import jax.numpy as jnp
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import __graft_entry__ as graft
+
 from libzl_tpu.engine.voicestate import VoicePool
 from libzl_tpu.ops import voice as ref
 from libzl_tpu_torch.ops import voice as tv
+from libzl_tpu_torch.ops.mixdown import lane_mixdown
 
 SR = 48000.0
 N_SOUND = 1 << 16
@@ -192,3 +196,21 @@ def test_quirk_gain_routes_windows_to_gather():
                          return_contrib=True)
     for a, b in zip(g, w):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V,B", [(64, 128), (256, 1024)])
+def test_mixdown_matches_reference_mix(V, B):
+    """The port's lane mixdown on the reference's own contributions, against
+    the reference's one-hot mix (numpy einsum and the jax dot), on
+    __graft_entry__._example_inputs: rtol 1e-5, atol 1e-7
+    (tests/test_voice_render.py:214-217)."""
+    sound, prog, _ = graft._example_inputs(V, B, 1 << 14)
+    mix_np, _, contrib = ref.render_voices(np, sound, prog, B,
+                                           return_contrib=True)
+    mix_jax = np.asarray(ref.render_voices(jnp, sound, prog, B)[0])
+    got = lane_mixdown(torch.from_numpy(np.asarray(contrib)),
+                       torch.from_numpy(np.asarray(prog.lane, np.int32)))
+    assert got.shape == (12, B, 2)
+    for want in (mix_np, mix_jax):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    assert np.abs(mix_np).max() > 0.05
