@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
                           [--soak-seconds S] [--soak-event-seconds S]
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
+    python3 chip_smoke.py --mixdown-only      # phases 1, 2, the mixdown's 3, 5
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -19,7 +20,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    read their taps directly, and the hostile calls must have both; the
    lane mixdown kernel against its plain version, torch.equal, at (V, B) =
    (1024, 128) and (1024, 1024), a stacked H=16 horizon at B=128, lanes
-   outside [0, 12) and a non-zero init;
+   outside [0, 12), a non-zero init and the shapes its tiling makes special
+   (MIXDOWN_CASES), each through 16-, 8- and 4-byte copy chunks where the
+   shape allows them; `out` written over `init`; a 4-byte aligned view;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
@@ -40,9 +43,11 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    need at 3.35 TB/s, unique taps counted once) and the share of it
    reached, and the kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA
    events: device time, and call time with the host's launch latency);
-   the mixdown kernel, its plain version and the one-hot torch.matmul it
-   replaces on the session's last per-block contributions at B=1024 and
-   B=128 and on a stacked H=16 horizon at B=128, each beside its bound;
+   the mixdown kernel (also through 8- and 4-byte copy chunks, with its
+   inputs left in L2, and any --compare source of it), its plain version,
+   the one-hot torch.matmul it replaces and an empty kernel on its grid, on
+   the session's last per-block contributions at B=1024 and B=128 and on a
+   stacked H=16 horizon at B=128, each beside its bound;
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -105,11 +110,15 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    sustained realtime are printed, not held; the kernels' launches equal
    the engine's dispatches; then live_rig and midi_live_demo
    (libzl_tpu_torch/examples) on "cuda" for 1 s each: "live rig OK", a
-   WAV peak above 0.005.
+   WAV peak above 0.005;
+15. bench       — the port's benchmark (python -m libzl_tpu_torch.bench) in
+   process at its short sizes: every key of its line present, every cell
+   finite and positive, none failed or skipped, no share of a bound over
+   100, both kernels launched; the line printed behind the card's name.
 
 Every phase prints its wall seconds. The line before the last holds the
 kernels' record as JSON, one entry a kernel (its launches are those of
-phases 4, 6, 7, 8, 13 and 14, each counted from 0 around its run; `ms`,
+phases 4, 6, 7, 8, 13, 14 and 15, each counted from 0 around its run; `ms`,
 `plain_ms`, `bound_ms` and `library_ms` are those of the inputs named by its
 `inputs`: for the fetch fixed synthetic inputs, with its `session_` keys
 those of the session's last per-block dispatch at B=1024; for the mixdown
@@ -131,6 +140,24 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+try:
+    from libzl_tpu_torch import bench
+    from libzl_tpu_torch.utils.roofline import fetch_bound, mixdown_bound
+except ImportError as exc:
+    print(f"chip_smoke: the port's package is not beside this script "
+          f"({exc})", file=sys.stderr)
+    sys.exit(2)
+
+# the session (also through the C ABI), the event timer, the kernel-call
+# capture, the chained realtime factor and the pump run are the benchmark's
+# (libzl_tpu_torch/bench.py)
+session_plan = bench.session_plan
+build_session = bench.populate_session
+_events_ms = bench.events_ms
+time_mesh = bench.chained_realtime
+_env = bench.env_set
+abi_session = bench.abi_session
 
 NUM_VOICES = 1024
 NUM_CLIPS = 64
@@ -219,58 +246,6 @@ def check_launches(launches: dict, windows: int, engines, label: str):
           f"times for {want} shard renders")
 
 
-def session_plan(sr: int, num_voices: int = NUM_VOICES,
-                 num_clips: int = NUM_CLIPS):
-    """bench.py's session, drawn from seed 0: `num_clips` two-partial sine
-    clips of 0.4-2 s ([T, 1] f32) and one looped ClipCommand per voice
-    across 10 channels, as `make_command(clip_id)` callables."""
-    from libzl_tpu_torch.engine.commands import ClipCommand
-
-    rng = np.random.default_rng(0)
-    waves = []
-    for i in range(num_clips):
-        seconds = float(rng.uniform(0.4, 2.0))
-        t = np.arange(int(sr * seconds)) / sr
-        freq = 110.0 * (2.0 ** (i % 24 / 12.0))
-        waves.append((
-            0.25 * np.sin(2 * np.pi * freq * t)
-            + 0.1 * np.sin(2 * np.pi * 2 * freq * t)
-        ).astype(np.float32)[:, None])
-    voices = []
-    for v in range(num_voices):
-        # distinct notes per (clip, channel) pair so no commands coalesce
-        note = 48 + (v // 320) * 5 + int(rng.integers(0, 5))
-        volume = float(rng.uniform(0.3, 1.0))
-
-        def make_command(clip_id, v=v, note=note, volume=volume):
-            cmd = ClipCommand.channel(clip_id, v % 10)
-            cmd.midi_note = note
-            cmd.change_volume = True
-            cmd.volume = volume
-            cmd.looping = True
-            cmd.start_playback = True
-            return cmd
-
-        voices.append((v % num_clips, make_command))
-    return waves, voices
-
-
-def build_session(engine, num_voices: int = NUM_VOICES,
-                  num_clips: int = NUM_CLIPS):
-    """bench.py's build_session on a given engine: session_plan's clips and
-    voices, transport started at 120 BPM."""
-    from libzl_tpu_torch.io.wav import AudioData
-    from libzl_tpu_torch.models.clip import ClipAudioSource
-
-    sr = engine.sample_rate
-    engine.start_transport(bpm=120)
-    waves, voices = session_plan(sr, num_voices, num_clips)
-    clips = [ClipAudioSource(engine, audio=AudioData(w, sr)) for w in waves]
-    for i, make_command in voices:
-        engine.schedule_clip_command(make_command(clips[i].id), 0)
-    return clips
-
-
 def note_off(engine, voice: int) -> None:
     """Schedule a stop of `voice`'s note (its clip, channel and note: the
     reference's stop-matching identity)."""
@@ -282,14 +257,6 @@ def note_off(engine, voice: int) -> None:
     cmd.midi_note = int(pool.midi_note[voice])
     cmd.stop_playback = True
     engine.schedule_clip_command(cmd, 0)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ phases
@@ -304,7 +271,7 @@ def phase_environment() -> str:
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()
     print(f"nvcc: {nvcc[-2] if len(nvcc) > 1 else nvcc[-1]}")
-    card = card_line()
+    card = bench.device_line("cuda:0")
     print(card)
     print(f"device: {torch.cuda.get_device_name(0)}  "
           f"count {torch.cuda.device_count()}")
@@ -456,27 +423,57 @@ def phase_kernel(device) -> float:
     return worst
 
 
-# (V, B, H, lanes outside [0, 12), non-zero init); H=0 is one block
-MIXDOWN_CASES = ((NUM_VOICES, LIVE_BLOCK, 0, False, False),
-                 (NUM_VOICES, SUPER_BLOCK, 0, False, False),
-                 (NUM_VOICES, LIVE_BLOCK, 16, False, False),
-                 (NUM_VOICES, LIVE_BLOCK, 0, True, False),
-                 (NUM_VOICES, SUPER_BLOCK, 0, True, True),
-                 (NUM_VOICES, LIVE_BLOCK, 16, True, True))
+# The kernel keeps 128 rows of a lane in flight, adds and refills them 16 at
+# a time and lists 1024 voices at a time: lane i of a "ring" draw holds
+# RING_COUNTS[i] voices, one below, at and above half that depth, the depth
+# and twice it.
+RING_COUNTS = (63, 64, 65, 127, 128, 129, 255, 256, 257)
+RING_VOICES = sum(RING_COUNTS) + 40          # and 40 voices of no lane
+
+# (V, B, H, lanes, non-zero init); H=0 is one block; lanes "session" (v % 10,
+# as the session's), "stray" (random with some outside [0, 12)), "one" (every
+# voice in lane 3) or "ring". The main path's shapes, then the shapes the
+# kernel's tiling makes special (tests/test_torch_kernels.py TILING_CASES):
+# E = 2B not a multiple of the 128-element tile or of 4, lanes around the
+# ring's depth, one lane many rings deep, V not a multiple of 32 and past
+# one listing, E = 2.
+MIXDOWN_CASES = ((NUM_VOICES, LIVE_BLOCK, 0, "session", False),
+                 (NUM_VOICES, SUPER_BLOCK, 0, "session", False),
+                 (NUM_VOICES, LIVE_BLOCK, 16, "session", False),
+                 (NUM_VOICES, LIVE_BLOCK, 0, "stray", False),
+                 (NUM_VOICES, SUPER_BLOCK, 0, "stray", True),
+                 (NUM_VOICES, LIVE_BLOCK, 16, "stray", True),
+                 (RING_VOICES, 6, 0, "ring", False),
+                 (RING_VOICES, 65, 0, "ring", True),
+                 (RING_VOICES, LIVE_BLOCK, 2, "ring", True),
+                 (NUM_VOICES, 16, 0, "one", False),
+                 (2500, 33, 0, "one", True),
+                 (1000, 100, 0, "stray", False),
+                 (1025, 64, 2, "stray", False),
+                 (300, 1, 0, "stray", True),
+                 (77, 130, 3, "stray", True))
 
 
-def mixdown_inputs(rng, V: int, B: int, H: int, stray: bool, init: bool,
+def mixdown_inputs(rng, V: int, B: int, H: int, lanes: str, init: bool,
                    device) -> tuple:
     """(contrib [V, B, 2] or [H, V, B, 2], lane int32 [V], init or None)
-    on `device`: contributions at the session's scale with exact zeros,
-    lanes in [0, 12) and (`stray`) some outside it."""
+    on `device`: contributions at the session's scale with exact zeros and
+    lanes drawn as `lanes` says (MIXDOWN_CASES)."""
     lead = (H,) if H else ()
     contrib = (0.3 * rng.standard_normal(lead + (V, B, 2))).astype(np.float32)
     contrib[rng.random(contrib.shape) < 0.1] = 0.0
-    lane = rng.integers(0, 12, V)
-    if stray:
+    if lanes == "session":
+        lane = np.arange(V) % 10
+    elif lanes == "one":
+        lane = np.full(V, 3)
+    elif lanes == "ring":
+        lane = rng.permutation(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(RING_COUNTS)]
+            + [np.full(V - sum(RING_COUNTS), -1)]))
+    else:
         lane = np.where(rng.random(V) < 0.15,
-                        rng.choice([-7, -1, 12, 100], V), lane)
+                        rng.choice([-7, -1, 12, 100], V),
+                        rng.integers(0, 12, V))
     start = (rng.standard_normal(lead + (12, B, 2)).astype(np.float32)
              if init else None)
     return (torch.from_numpy(contrib).to(device),
@@ -485,28 +482,66 @@ def mixdown_inputs(rng, V: int, B: int, H: int, stray: bool, init: bool,
 
 
 def phase_mixdown(device) -> float:
-    """The lane mixdown kernel against its plain version on the card:
-    torch.equal at each of MIXDOWN_CASES. Returns the max abs error (0)."""
+    """The lane mixdown kernel against its plain version on the card,
+    torch.equal at each of MIXDOWN_CASES: through the copy chunk the kernel
+    takes (the widest the shape allows: 4, 2 or 1 floats) and through each
+    narrower one; then `out` written over `init`, and contributions 4 bytes
+    into their storage (one-float chunks). Returns the max abs error (0)."""
+    from libzl_tpu_torch import _build
     from libzl_tpu_torch.ops import mixdown as md
 
+    lib = _build.load()
     rng = np.random.default_rng(4321)
     worst = 0.0
-    for V, B, H, stray, init in MIXDOWN_CASES:
-        contrib, lane, start = mixdown_inputs(rng, V, B, H, stray, init,
+    for V, B, H, lanes, init in MIXDOWN_CASES:
+        contrib, lane, start = mixdown_inputs(rng, V, B, H, lanes, init,
                                               device)
-        got = md.lane_mixdown(contrib, lane, init=start)
         want = md.lane_mixdown_plain(contrib, lane, init=start)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        widths = [0] + [vec for vec in (4, 2, 1) if 2 * B % vec == 0]
+        for vec in widths:
+            got = (md.lane_mixdown(contrib, lane, init=start) if vec == 0
+                   else md.launch_kernel(contrib, lane, init=start, vec=vec))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()), "non-finite mixdown")
+            check(torch.equal(got, want), f"mixdown kernel (chunk {vec}) "
+                  f"differs from plain at V={V} B={B} H={H}: {err:.3e}")
+            worst = max(worst, err)
         print(f"mixdown V={V} B={B}" + (f" H={H}" if H else "")
-              + (", lanes outside [0, 12)" if stray else "")
-              + (", non-zero init" if init else "")
-              + f": max_abs_err {err:.3e}, torch.equal "
-              f"{torch.equal(got, want)}")
-        check(bool(torch.isfinite(got).all()), "non-finite mixdown")
-        check(torch.equal(got, want), f"mixdown kernel differs from plain "
-              f"at V={V} B={B} H={H}: {err:.3e}")
-        worst = max(worst, err)
+              + f", lanes {lanes}" + (", non-zero init" if init else "")
+              + f": max_abs_err {worst:.3e}, torch.equal True through the "
+              f"widest copy chunk and through chunks of {widths[1:]} floats")
+
+    # `out` aliasing `init`, through the C entry point
+    contrib, lane, start = mixdown_inputs(rng, NUM_VOICES, LIVE_BLOCK, 2,
+                                          "session", True, device)
+    want = md.lane_mixdown(contrib, lane, init=start)
+    code = lib.zl_lane_mixdown(
+        contrib.data_ptr(), lane.data_ptr(), 0, start.data_ptr(),
+        start.data_ptr(), 2, NUM_VOICES, 2 * LIVE_BLOCK, 12,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "lane_mixdown over its init")
+    torch.cuda.synchronize()
+    check(torch.equal(start, want), "mixdown written over its init differs")
+
+    # a 4-byte aligned view copies in one-float chunks; wider are refused
+    contrib, lane, _ = mixdown_inputs(rng, NUM_VOICES, LIVE_BLOCK, 0,
+                                      "session", False, device)
+    flat = torch.zeros(contrib.numel() + 1, device=device)
+    flat[1:] = contrib.reshape(-1)
+    view = flat[1:].view(contrib.shape)
+    want = md.lane_mixdown_plain(view, lane)
+    check(torch.equal(md.lane_mixdown(view, lane), want),
+          "mixdown of a 4-byte aligned view differs from plain")
+    try:
+        md.launch_kernel(view, lane, vec=2)
+    except RuntimeError:
+        pass
+    else:
+        raise SmokeFailure("a 4-byte aligned view took two-float chunks")
+    torch.cuda.synchronize()
+    print("mixdown: out over init bit-equal to a separate output; a 4-byte "
+          "aligned view bit-equal through one-float chunks")
     return worst
 
 
@@ -703,31 +738,6 @@ def phase_default_engine(device) -> dict:
     return total
 
 
-def _events_ms(fn, iters: int, primed: bool) -> list:
-    """Per-call ms over CUDA events, one event pair per call, with the 50 MB
-    L2 flushed before each call (the render's other tensors evict the
-    bank's windows between fetches). `primed` queues a ~2.5 ms device spin
-    after the flush, so the host enqueues the call (the plain version's ~20
-    ops included) while the card is busy and the pair brackets device
-    execution only; unprimed, the pair also
-    holds the host's launch latency (the card idles while the host
-    launches)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    out = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        if primed:
-            torch.cuda._sleep(5_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
-
-
 def _device_profile(engine, n_blocks: int) -> dict:
     """Device time per block from torch.profiler's CUDA kernel events over
     `n_blocks` chained blocks: total, kernel launches, and the shares of
@@ -771,115 +781,56 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
           f"unprofiled process_block time ({block_ms:.4f} ms)")
 
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate
-F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
-
-
-def fetch_bound(args, r_max: float = 4.0) -> dict:
-    """The least time the card could take for one windows fetch on these
-    inputs: each input byte read once and each output byte written once
-    (pos and alpha 8 B and the output 8 B a (voice, frame), the windows 8 B
-    a voice, and the bank samples the valid frames tap, each unique sample
-    of both channels once), against the float32 work (per frame and
-    channel: the int16 dequant of two taps, two products and a sum)."""
-    from libzl_tpu_torch.ops.fetch_windows import region_rows
-
-    sound, pos, _, win_a, win_b = args
-    V, B = pos.shape
-    region = region_rows(B, r_max)
-    n = sound.shape[1]
-    p = pos.long()
-    valid = (p >= 0) & (p < 2 * region - 1)
-    base_a = win_a.long()[:, None] * 512
-    base_b = win_b.long()[:, None] * 512 - region
-    taps = torch.cat([torch.where(t < region, base_a + t, base_b + t)[valid]
-                      for t in (p, p + 1)])
-    taps = taps[(taps >= 0) & (taps < n)]
-    unique = int(torch.unique(taps).numel())
-    nbytes = 16 * V * B + 8 * V + unique * 2 * sound.element_size()
-    ops = V * B * 2 * (3 + (2 if sound.dtype == torch.int16 else 0))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "unique_taps": unique,
-            "valid_frames": int(valid.sum()),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
-def capture_calls(engine) -> dict:
-    """One more block of `engine`; the arguments of each kernel call it
-    made (one a shard under a mesh): {"fetch": [(args, r_max)], "mixdown":
-    [(contrib, lane, init)]}."""
-    from libzl_tpu_torch.ops import voice
-    from libzl_tpu_torch.parallel import sharding
-
-    calls = {"fetch": [], "mixdown": []}
-    real_fetch, real_mix = voice.fetch_interp, sharding.lane_mixdown
-
-    def fetch(*args, **kw):
-        calls["fetch"].append((args, kw.get("r_max", 4.0)))
-        return real_fetch(*args, **kw)
-
-    def mix(contrib, lane, num_lanes=12, init=None):
-        calls["mixdown"].append((contrib, lane, init))
-        return real_mix(contrib, lane, num_lanes, init)
-
-    voice.fetch_interp, sharding.lane_mixdown = fetch, mix
-    try:
-        engine.process_block()
-    finally:
-        voice.fetch_interp, sharding.lane_mixdown = real_fetch, real_mix
-    torch.cuda.synchronize()
-    return calls
-
-
 def capture_dispatch(engine) -> tuple:
     """(fetch (args, r_max), mixdown (contrib, lane, init)) of one more
     block of a one-device per-block engine: the session's last per-block
     dispatch."""
-    calls = capture_calls(engine)
+    calls = bench.capture_calls(engine.process_block)
+    torch.cuda.synchronize()
     check(len(calls["fetch"]) == 1 and len(calls["mixdown"]) == 1,
           f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
           f"calls in one block")
     return calls["fetch"][0], calls["mixdown"][0]
 
 
-def mixdown_bound(contrib, lane, init=None) -> dict:
-    """The least time the card could take for one lane mixdown on these
-    inputs: contrib, lane and init (when given) read once and the
-    [.., 12, B, 2] output written once, against one float32 add per slice,
-    voice with a lane in [0, 12), frame and channel."""
-    H = contrib.shape[0] if contrib.dim() == 4 else 1
-    B = contrib.shape[-2]
-    out_bytes = H * 12 * B * 2 * 4
-    nbytes = (contrib.numel() * 4 + lane.numel() * 4 + out_bytes
-              + (out_bytes if init is not None else 0))
-    laned = int(((lane >= 0) & (lane < 12)).sum())
-    ops = laned * (H if lane.dim() == 1 else 1) * B * 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
-def time_mixdown(card: str, res: dict, key: str, contrib, lane) -> None:
-    """The mixdown kernel, its plain version and the one-hot torch.matmul it
-    replaces (one call, the one-hot built beforehand; another summation
-    order) on the same inputs, p50 of 50 CUDA-event timings each in turns,
-    beside the bound; into res["mix_<name>_ms_<key>"]."""
+def time_mixdown(card: str, res: dict, key: str, contrib, lane,
+                 versions: dict) -> None:
+    """The mixdown kernel (16-byte copy chunks at these shapes), the same
+    through 8- and 4-byte chunks (copy8, copy4), the --compare versions, its
+    plain version, the one-hot torch.matmul it replaces (one call, the
+    one-hot built beforehand; another summation order) and an empty kernel
+    on the kernel's grid (what the launch alone costs) on the same inputs:
+    p50 of 50 CUDA-event timings each, in turns, beside the bound; into
+    res["mix_<name>_ms_<key>"]."""
+    from libzl_tpu_torch import _build
     from libzl_tpu_torch.ops import mixdown as md
 
-    V = contrib.shape[-3]
+    lib = _build.load()
+    V, B = contrib.shape[-3], contrib.shape[-2]
+    H = contrib.shape[0] if contrib.dim() == 4 else 1
     onehot = (torch.arange(12, device=lane.device)[:, None]
               == lane.long()[None, :]).to(torch.float32)
     flat = contrib.reshape(*contrib.shape[:-3], V, -1)
-    fns = {"kernel": lambda: md.lane_mixdown(contrib, lane),
-           "plain": lambda: md.lane_mixdown_plain(contrib, lane),
-           "library": lambda: torch.matmul(onehot, flat)}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        _build.check(lib, lib.zl_lane_mixdown_empty(H, 2 * B, 12, stream),
+                     "empty launch")
+
+    fns = {"kernel": lambda: md.lane_mixdown(contrib, lane)}
+    for vec in (2, 1):
+        fns[f"copy{4 * vec}"] = lambda vec=vec: md.launch_kernel(
+            contrib, lane, vec=vec)
+    for name, mix in versions.items():
+        fns[name] = lambda mix=mix: mix(contrib, lane)
+    fns["plain"] = lambda: md.lane_mixdown_plain(contrib, lane)
+    fns["library"] = lambda: torch.matmul(onehot, flat)
     want = fns["plain"]()
-    check(torch.equal(fns["kernel"](), want),
-          f"mixdown {key}: kernel differs from plain")
+    for name in ("kernel", "copy8", "copy4", *versions):
+        check(torch.equal(fns[name](), want),
+              f"mixdown {key}: {name} differs from plain")
     lib_err = float((fns["library"]().reshape(want.shape) - want).abs().max())
+    fns["empty"] = empty
     for f in fns.values():
         for _ in range(5):
             f()
@@ -889,6 +840,10 @@ def time_mixdown(card: str, res: dict, key: str, contrib, lane) -> None:
         samples[name] += _events_ms(fns[name], 25, True)
     for name in names:
         res[f"mix_{name}_ms_{key}"] = float(np.median(samples[name]))
+    # the kernel again with its inputs left in L2: what the bytes' way from
+    # device memory costs it
+    res[f"mix_kernel_in_l2_ms_{key}"] = float(np.median(
+        _events_ms(fns["kernel"], 50, True, flush_l2=False)))
     bound = mixdown_bound(contrib, lane)
     res[f"mix_bound_ms_{key}"] = bound["bound_ms"]
     res[f"mix_bound_by_{key}"] = bound["bound_by"]
@@ -898,20 +853,39 @@ def time_mixdown(card: str, res: dict, key: str, contrib, lane) -> None:
           + ", ".join(f"{name} {res[f'mix_{name}_ms_{key}']:.4f} ms"
                       for name in names)
           + f" (p50 of 50 CUDA-event timings each, in turns; the plain "
-          f"version syncs once for its step count); {bound['bytes']} bytes "
-          f"-> bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, 3.35 "
-          f"TB/s); the kernel reaches "
-          f"{100 * bound['bound_ms'] / kernel_ms:.1f}% of its bound "
-          f"({bound['bytes'] / 1e6 / kernel_ms:.0f} GB/s); the matmul's "
-          f"order differs from the fold by {lib_err:.3e} at most")
+          f"version syncs once for its step count), the kernel with its "
+          f"inputs in L2 "
+          f"{res[f'mix_kernel_in_l2_ms_{key}']:.4f} ms; {bound['bytes']} "
+          f"bytes -> bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}, 3.35 TB/s); the "
+          f"kernel reaches {100 * bound['bound_ms'] / kernel_ms:.1f}% of its "
+          f"bound ({bound['bytes'] / 1e6 / kernel_ms:.0f} GB/s); the "
+          f"matmul's order differs from the fold by {lib_err:.3e} at most")
+
+
+def time_mixdowns(device, card: str, res: dict, session_mix: dict,
+                  versions: dict) -> None:
+    """time_mixdown at the main path's shapes: `session_mix[B]`'s (contrib,
+    lane, init) at B=1024 and B=128, and a stacked H=16 horizon at B=128
+    (random contributions on those lanes)."""
+    for B in (SUPER_BLOCK, LIVE_BLOCK):
+        contrib, lane, _ = session_mix[B]
+        time_mixdown(card, res, f"{NUM_VOICES}x{B}_session", contrib, lane,
+                     versions)
+    lane = session_mix[LIVE_BLOCK][1]
+    stacked = torch.from_numpy((0.3 * np.random.default_rng(8).standard_normal(
+        (16, NUM_VOICES, LIVE_BLOCK, 2))).astype(np.float32)).to(device)
+    time_mixdown(card, res, f"16x{NUM_VOICES}x{LIVE_BLOCK}_stacked", stacked,
+                 lane, versions)
 
 
 def load_version(spec: str) -> tuple:
-    """`name=path.cu[,nvcc flag,...]`: another source with the windows
-    kernel's C entry points (a parent commit's copy, say), built with the
-    port's nvcc flags plus the given ones into build/libzl_tpu_torch/
-    versions/; returns (name, a function with fetch_interp's arguments that
-    launches it, counting nothing)."""
+    """`name=path.cu[,nvcc flag,...]`: another source of one of the kernels
+    (a parent commit's copy, say), built with the port's nvcc flags plus the
+    given ones into build/libzl_tpu_torch/versions/. Returns (name, which
+    kernel its C entry points are: "fetch" or "mixdown", a function with
+    fetch_interp's or lane_mixdown's arguments that launches it, counting
+    nothing)."""
     import ctypes
 
     from libzl_tpu_torch import _build
@@ -920,13 +894,33 @@ def load_version(spec: str) -> tuple:
     name, rest = spec.split("=", 1)
     path, *flags = rest.split(",")
     src = Path(path).resolve()
-    so = _build._hashed(f"fetch_{name}", [src], _build.NVCC_FLAGS + flags,
+    so = _build._hashed(f"version_{name}", [src], _build.NVCC_FLAGS + flags,
                         _build.BUILD_DIR / "versions")
     if not so.is_file():
         nvcc = _build.find_nvcc()
         _build._compile(lambda out: [nvcc, *_build.NVCC_FLAGS, *flags, "-o",
                                      out, str(src)], so, f"nvcc {name}")
-    lib = _build.bind_fetch(ctypes.CDLL(str(so)))
+    lib = ctypes.CDLL(str(so))
+    print(f"version {name}: {src}{' ' + ' '.join(flags) if flags else ''}")
+    if hasattr(lib, "zl_lane_mixdown"):
+        _build.bind_mixdown(lib)
+
+        def mixdown(contrib, lane, init=None):
+            c = contrib if contrib.dim() == 4 else contrib[None]
+            H, V, B = c.shape[0], c.shape[1], c.shape[2]
+            out = torch.empty((H, 12, B, 2), dtype=torch.float32,
+                              device=c.device)
+            code = lib.zl_lane_mixdown(
+                c.data_ptr(), lane.data_ptr(), V if lane.dim() == 2 else 0,
+                None if init is None else init.data_ptr(), out.data_ptr(),
+                H, V, 2 * B, 12, torch.cuda.current_stream().cuda_stream)
+            # the kernels' library names the error (the source has no
+            # zl_cuda_error_string of its own)
+            _build.check(_build.load(), code, f"mixdown version {name}")
+            return out if contrib.dim() == 4 else out[0]
+
+        return name, "mixdown", mixdown
+    _build.bind_fetch(lib)
 
     def fetch(sound, pos, alpha, win_a, win_b, r_max: float = 4.0):
         V, B = pos.shape
@@ -940,11 +934,11 @@ def load_version(spec: str) -> tuple:
         _build.check(lib, code, f"fetch version {name}")
         return out
 
-    print(f"version {name}: {src}{' ' + ' '.join(flags) if flags else ''}")
-    return name, fetch
+    return name, "fetch", fetch
 
 
-def phase_timing(device, card: str, versions: dict) -> dict:
+def phase_timing(device, card: str, versions: dict,
+                 mix_versions: dict) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
     from libzl_tpu_torch.ops import fetch_windows as fw
 
@@ -1114,17 +1108,7 @@ def phase_timing(device, card: str, versions: dict) -> dict:
               f"{res[f'kernel_ms_{V}x{B}_rmax4']:.4f} ms (same taps, "
               f"bit-equal outputs; p50 of 50 each, in turns)")
 
-    # the lane mixdown at the main path's shapes: the session's last
-    # per-block contributions, and a stacked H=16 horizon at B=128 (random
-    # contributions on the session's lanes)
-    for B in (SUPER_BLOCK, LIVE_BLOCK):
-        contrib, lane, _ = session_mix[B]
-        time_mixdown(card, res, f"{NUM_VOICES}x{B}_session", contrib, lane)
-    lane = session_mix[LIVE_BLOCK][1]
-    stacked = torch.from_numpy((0.3 * np.random.default_rng(8).standard_normal(
-        (16, NUM_VOICES, LIVE_BLOCK, 2))).astype(np.float32)).to(device)
-    time_mixdown(card, res, f"16x{NUM_VOICES}x{LIVE_BLOCK}_stacked", stacked,
-                 lane)
+    time_mixdowns(device, card, res, session_mix, mix_versions)
     torch.cuda.synchronize()
     return res
 
@@ -1228,7 +1212,6 @@ def _default_timing(device, card: str, res: dict) -> None:
 BRIDGE_BLOCKS = 384        # per run: half with global recording (drained),
                            # half with a lane port recording (per block)
 PUMP_SECONDS = 5.0
-ABI_PLAY_CHANNEL = -2      # ClipAudioSource_play's channel (lane 0)
 
 
 class MemorySink:
@@ -1245,52 +1228,6 @@ class MemorySink:
 
     def close(self):
         pass
-
-
-@contextlib.contextmanager
-def _env(**values):
-    """Set environment variables (None unsets) for a block, then restore."""
-    saved = {k: os.environ.get(k) for k in values}
-    try:
-        for k, v in values.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = str(v)
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-def write_session_wavs(tmp: str) -> list:
-    from libzl_tpu_torch.io.wav import write_wav
-
-    waves, _ = session_plan(SAMPLE_RATE)
-    paths = []
-    for i, w in enumerate(waves):
-        paths.append(f"{tmp}/clip{i:02d}.wav")
-        write_wav(paths[-1], w, SAMPLE_RATE)
-    return paths
-
-
-def abi_session(bridge, wavs: list) -> None:
-    """The north-star session through the C entry points: the 64 clips by
-    clip_new and clip_play (one looped voice each, on the ABI's play
-    channel), the other 960 voices as scheduled looped ClipCommands under
-    the runtime lock (as an embedding host schedules notes), timer_start."""
-    rt = bridge._rt()
-    ids = [bridge.clip_new(p) for p in wavs]
-    for cid in ids:
-        bridge.clip_play(cid, True, ABI_PLAY_CHANNEL)
-    _, voices = session_plan(SAMPLE_RATE, NUM_VOICES - len(ids))
-    for i, make_command in voices:
-        cmd = make_command(ids[i])
-        rt.run_locked(lambda cmd=cmd: rt.engine.schedule_clip_command(cmd, 0))
-    bridge.timer_start(120)
 
 
 def bridge_run(device: str, drain, wavs: list, tmp: str) -> dict:
@@ -1431,43 +1368,23 @@ def pump_launches(engine, label: str) -> dict:
 def phase_pump(device, wavs: list, card: str) -> dict:
     """The wall-clock pump on the card with a null sink and per-block
     delivery (bounce drain 1: what a pacing sink gets), the session loaded
-    while it runs; PUMP_SECONDS of it measured."""
-    from libzl_tpu_torch.capi import bridge
-
-    with _env(LIBZL_TPU_NO_PUMP=None, LIBZL_TPU_BACKEND=device,
-              LIBZL_TPU_VOICES=NUM_VOICES, LIBZL_TPU_BLOCK=LIVE_BLOCK,
-              LIBZL_TPU_BOUNCE_DRAIN=1, LIBZL_TPU_SINK="null"):
-        bridge.init_engine()
-    try:
-        rt = bridge._rt()
-        engine = rt.engine
-        check(rt._pump is not None, "the pump did not start")
-        reset_counts_locked(rt)
-        abi_session(bridge, wavs)
-        b0, t0 = engine.total_blocks, time.perf_counter()
-        time.sleep(PUMP_SECONDS)
-        blocks = engine.total_blocks - b0
-        wall = time.perf_counter() - t0
-        rt.stop_pump()
-        engine.drain_speculation()
-        stats = engine.stats()
-        waits = rt.profiler.summary().get("copy_wait", {})
-        error = rt.pump_error
-        launches = pump_launches(engine, "pump")
-    finally:
-        bridge.shutdown_engine()
-    period = LIVE_BLOCK / SAMPLE_RATE
+    while it runs; PUMP_SECONDS of it measured (bench.measure_pump)."""
+    r = bench.measure_pump(
+        device, wavs, PUMP_SECONDS, before=reset_counts_locked,
+        after=lambda engine: pump_launches(engine, "pump"))
+    launches, stats, waits = r["after"], r["stats"], r["copy_wait"]
     print(f"[{card}] pump (1024 voices, B=128, null sink, per-block "
-          f"delivery): {blocks} blocks rendered in {wall:.2f} s of wall "
-          f"time = {wall / period:.0f} block periods ({blocks * period / wall:.3f}x "
+          f"delivery): {r['blocks']} blocks rendered in {r['wall']:.2f} s of "
+          f"wall time = {r['periods']:.0f} block periods ({r['share']:.3f}x "
           f"realtime); kernel launches {json.dumps(launches)}")
-    print(f"[{card}] pump copy wait p50 {waits.get('p50_ms', float('nan')):.4f} "
-          f"ms, max {waits.get('max_ms', float('nan')):.4f} ms over "
+    nan = float("nan")
+    print(f"[{card}] pump copy wait p50 {waits.get('p50_ms', nan):.4f} ms, "
+          f"max {waits.get('max_ms', nan):.4f} ms over "
           f"{waits.get('count', 0)} blocks")
-    print(f"[{card}] pump phase_stats {json.dumps(rt.phase_stats())}")
+    print(f"[{card}] pump phase_stats {json.dumps(r['phase_stats'])}")
     print(f"[{card}] pump slo_by_kind {json.dumps(stats['slo_by_kind'])}; "
           f"dsp_load {stats['dsp_load']}")
-    check(error is None, f"pump error: {error!r}")
+    check(r["error"] is None, f"pump error: {r['error']!r}")
     check(stats["spec_failures"] == 0,
           f"speculative build failed: {stats['spec_last_failure']}")
     return launches
@@ -1714,22 +1631,6 @@ def _mesh_launches(engines: dict, label: str) -> dict:
     return launches
 
 
-def time_mesh(e, n: int) -> dict:
-    """Realtime factor over `n` chained blocks (one sync at the end) and
-    the process_block p50 of those blocks."""
-    from libzl_tpu_torch.utils.profiling import BlockProfiler
-
-    e.profiler = BlockProfiler()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        out = e.process_block()
-    out.outputs.master.cpu()
-    wall = time.perf_counter() - t0
-    e.drain_speculation()
-    return {"rt": n * e.block_frames / SAMPLE_RATE / wall,
-            "ms_p50": e.profiler.summary()["process_block"]["p50_ms"]}
-
-
 def check_shard_kernels(engine, k: int) -> int:
     """Each shard's windows fetch and lane mixdown (from the mix carried
     from the shard before) of one more block against the plain versions:
@@ -1737,7 +1638,8 @@ def check_shard_kernels(engine, k: int) -> int:
     from libzl_tpu_torch.ops import fetch_windows as fw
     from libzl_tpu_torch.ops import mixdown as md
 
-    calls = capture_calls(engine)
+    calls = bench.capture_calls(engine.process_block)
+    torch.cuda.synchronize()
     check(len(calls["fetch"]) == k and len(calls["mixdown"]) == k,
           f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
           f"calls for {k} shards")
@@ -2018,6 +1920,39 @@ def phase_examples(device, tmp: str) -> None:
           f"midi_live_demo WAV peak {peak}")
 
 
+BENCH_BUDGET_S = 150.0
+
+
+def phase_bench(card: str) -> tuple:
+    """The port's benchmark (python -m libzl_tpu_torch.bench) in process at
+    its short sizes and a short budget: every key of its line present, every
+    cell finite and positive, no cell failed or skipped, no share of a bound
+    over 100, and both kernels launched. Returns (the line, the kernels'
+    launches)."""
+    run = bench.Run("cuda:0", BENCH_BUDGET_S, reserve_s=5.0)
+    reset_launches()
+    bench.run_cells(run, bench.QUICK)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    line = run.line(partial=False)
+    print(f"[{card}] bench {json.dumps(line)}; kernel launches "
+          f"{json.dumps(launches)}")
+    check(launches["fetch_interp"] > 0 and launches["lane_mixdown"] > 0,
+          f"bench: a kernel was never launched: {launches}")
+    check(not run.failed and not run.skipped,
+          f"bench cells failed {run.failed}, skipped {run.skipped}")
+    for key in ("value", "vs_baseline", "rt_superblock", "rt_superblock_best",
+                *bench.CELLS):
+        check(key in line and np.isfinite(line[key]) and line[key] > 0,
+              f"bench {key} = {line.get(key)!r}")
+    check(len(line["rt_superblock_rounds"]) == bench.QUICK["throughput"][0],
+          f"bench rounds {line['rt_superblock_rounds']}")
+    check(line["device"] == card, f"bench device {line['device']!r}")
+    for key in ("kernel_pct_of_bound", "pct_of_bound"):
+        check(line[key] <= 100.0, f"bench {key} = {line[key]} exceeds 100")
+    return line, launches
+
+
 @contextlib.contextmanager
 def _phase(name: str):
     t0 = time.perf_counter()
@@ -2029,9 +1964,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=PATH.cu[,FLAG...]",
-                    help="also time this source of the windows kernel in "
+                    help="also time this source of the windows fetch or of "
+                         "the lane mixdown (told by its C entry points) in "
                          "phase 5, in turns with the port's (e.g. a parent "
-                         "commit's copy); NAME is not kernel or plain")
+                         "commit's copy); NAME is not kernel, plain, "
+                         "library, empty or copy<n>")
+    ap.add_argument("--mixdown-only", action="store_true",
+                    help="run phases 1 and 2, then only the lane mixdown's "
+                         "part of phase 3 and its timings of phase 5 (on "
+                         "random contributions at the session's lanes)")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="run phases 1 and 2, then only phase 13 across "
                          "every visible card (needs two or more)")
@@ -2050,7 +1991,9 @@ def main() -> int:
         card = phase_environment()
     with _phase("2 build"):
         phase_build()
-        versions = dict(load_version(spec) for spec in opts.compare)
+        loaded = [load_version(spec) for spec in opts.compare]
+        versions = {n: f for n, kind, f in loaded if kind == "fetch"}
+        mix_versions = {n: f for n, kind, f in loaded if kind == "mixdown"}
     if opts.mesh_cards_only:
         with _phase("13 mesh across cards"):
             launches = phase_mesh_cards(card)
@@ -2059,20 +2002,36 @@ def main() -> int:
         print(json.dumps({"mesh_cards_launches": launches,
                           "count": torch.cuda.device_count()}))
         return 0
-    check(not {"kernel", "plain"} & set(versions), "reserved version name")
+    check(not {"kernel", "plain", "library", "empty", "copy8", "copy4"}
+          & (set(versions) | set(mix_versions)),
+          "reserved version name")
+    if opts.mixdown_only:
+        with _phase("3 kernel (mixdown)"):
+            phase_mixdown(device)
+        with _phase("5 timing (mixdown)"):
+            rng = np.random.default_rng(8)
+            timing = {}
+            time_mixdowns(device, card, timing, {
+                B: mixdown_inputs(rng, NUM_VOICES, B, 0, "session", False,
+                                  device)
+                for B in (SUPER_BLOCK, LIVE_BLOCK)}, mix_versions)
+        print(f"timing: {json.dumps(timing)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     with _phase("3 kernel"):
         err = phase_kernel(device)
         mix_err = phase_mixdown(device)
     with _phase("4 slice"):
         launches = phase_slice(device)
     with _phase("5 timing"):
-        timing = phase_timing(device, card, versions)
+        timing = phase_timing(device, card, versions, mix_versions)
     synthetic = f"{NUM_VOICES}x{SUPER_BLOCK}_synthetic"
     session = f"{NUM_VOICES}x{SUPER_BLOCK}_session"
     with _phase("6 default engine"):
         launches = add_launches(launches, phase_default_engine(device))
     with tempfile.TemporaryDirectory() as tmp:
-        wavs = write_session_wavs(tmp)
+        wavs = bench.write_session_wavs(tmp)
         with _phase("7 bridge"):
             launches = add_launches(launches, phase_bridge(device, wavs, tmp))
         with _phase("8 pump"):
@@ -2092,10 +2051,14 @@ def main() -> int:
         launches = add_launches(launches, phase_soak(
             device, card, tmp, opts.soak_seconds, opts.soak_event_seconds))
         phase_examples(device, tmp)
+    with _phase("15 bench"):
+        bench_line, bench_launches = phase_bench(card)
+    launches = add_launches(launches, bench_launches)
     print(f"timing: {json.dumps(timing)}")
     print(f"stretch: {json.dumps(stretch)}")
     print(f"mesh timing: {json.dumps(mesh_timing)}")
-    print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14): "
+    print(f"bench: {json.dumps(bench_line)}")
+    print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14, 15): "
           f"{json.dumps(launches)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -2134,6 +2097,8 @@ def main() -> int:
         # the one-hot torch.matmul the kernel replaces: the same function,
         # summed in cuBLAS's order
         "library_ms": timing[f"mix_library_ms_{session}"],
+        # an empty kernel on the kernel's grid: the launch's share of `ms`
+        "empty_launch_ms": timing[f"mix_empty_ms_{session}"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

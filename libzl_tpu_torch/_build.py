@@ -156,11 +156,7 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = bind_fetch(ctypes.CDLL(str(build())))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        # contrib, lane, lane stride, init, out, H, V, E, L, stream
-        lib.zl_lane_mixdown.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64,
-                                        i64, i64, ptr]
-        lib.zl_lane_mixdown.restype = ctypes.c_int
+        bind_mixdown(lib)
         # B, region, int16 bank -> staged samples per channel and voice
         lib.zl_fetch_interp_stage_cap.argtypes = [ctypes.c_int64,
                                                   ctypes.c_int64,
@@ -180,6 +176,25 @@ def bind_fetch(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.zl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.zl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_mixdown(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the lane mixdown's C entry points of a loaded library."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    # contrib, lane, lane stride, init, out, H, V, E, L, stream
+    lib.zl_lane_mixdown.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64, i64,
+                                    i64, ptr]
+    lib.zl_lane_mixdown.restype = ctypes.c_int
+    if hasattr(lib, "zl_lane_mixdown_as"):   # not in every --compare source
+        # the same with the copy width (0: the widest; 4, 2 or 1 floats)
+        # before the stream
+        lib.zl_lane_mixdown_as.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64,
+                                           i64, i64, ctypes.c_int, ptr]
+        lib.zl_lane_mixdown_as.restype = ctypes.c_int
+        # H, E, L, stream: an empty kernel on the mixdown's grid
+        lib.zl_lane_mixdown_empty.argtypes = [i64, i64, i64, ptr]
+        lib.zl_lane_mixdown_empty.restype = ctypes.c_int
     return lib
 
 

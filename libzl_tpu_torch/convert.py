@@ -42,12 +42,15 @@ def sound_bank_tensor(data: np.ndarray, device, bank_dtype: str = "float32",
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
 
 
-def upload(arr: np.ndarray, device) -> torch.Tensor:
+def upload(arr, device) -> torch.Tensor:
     """A host array -> a device tensor. On CUDA the upload goes through
     pinned memory without blocking the host; on the CPU it is a copy, so
-    the caller may reuse the array."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    the caller may reuse the array. A tensor (a program kept on the device
+    and rendered again) goes to `device` as it is."""
     device = torch.device(device)
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device, copy=True)

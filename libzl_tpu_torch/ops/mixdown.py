@@ -117,6 +117,16 @@ def lane_mixdown(contrib, lane, num_lanes: int = NUM_SAMPLER_CHANNELS,
     `lane_mixdown.launches` counts kernel launches from every thread."""
     if contrib.device.type == "cpu":
         return lane_mixdown_plain(contrib, lane, num_lanes, init)
+    return launch_kernel(contrib, lane, num_lanes, init)
+
+
+def launch_kernel(contrib, lane, num_lanes: int = NUM_SAMPLER_CHANNELS,
+                  init=None, vec: int = 0):
+    """`lane_mixdown` of CUDA tensors: one launch of the kernel. `vec` 0
+    copies the rows in the widest chunks E = 2B and contrib's address allow
+    (4, 2 or 1 floats), as `lane_mixdown` does; 4, 2 or 1 forces that path
+    (the tests and timings of each) and raises where they do not allow
+    it."""
     if contrib.device.type != "cuda":
         raise ValueError(f"lane_mixdown: unsupported device {contrib.device}")
     from .. import _build
@@ -129,11 +139,11 @@ def lane_mixdown(contrib, lane, num_lanes: int = NUM_SAMPLER_CHANNELS,
     lib = _build.load()
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.zl_lane_mixdown(
+        code = lib.zl_lane_mixdown_as(
             c.data_ptr(), lane.data_ptr(), V if lane.dim() == 2 else 0,
             None if init4 is None else init4.data_ptr(), out.data_ptr(),
-            H, V, 2 * B, num_lanes, stream)
-    _build.check(lib, code, "lane_mixdown launch")
+            H, V, 2 * B, num_lanes, vec, stream)
+    _build.check(lib, code, f"lane_mixdown launch (vec {vec})")
     _count_launch()
     return out if stacked else out[0]
 

@@ -39,8 +39,8 @@ def test_no_libzl_tpu_import(rel):
 
 def test_the_scan_covers_the_whole_port():
     """The port's later modules are scanned too: sharding, the lane
-    mixdown, the soak, the examples, the torch stretch and the session
-    copy."""
+    mixdown, the soak, the examples, the torch stretch, the session copy,
+    the benchmark and the kernels' bounds."""
     for rel in ("libzl_tpu_torch/parallel/sharding.py",
                 "libzl_tpu_torch/ops/mixdown.py",
                 "libzl_tpu_torch/soak.py",
@@ -49,7 +49,9 @@ def test_the_scan_covers_the_whole_port():
                 "libzl_tpu_torch/examples/live_rig.py",
                 "libzl_tpu_torch/examples/midi_live_demo.py",
                 "libzl_tpu_torch/ops/stretch_torch.py",
-                "libzl_tpu_torch/models/session.py"):
+                "libzl_tpu_torch/models/session.py",
+                "libzl_tpu_torch/bench.py",
+                "libzl_tpu_torch/utils/roofline.py"):
         assert rel in FILES, rel
 
 

@@ -276,12 +276,21 @@ def test_horizon_engine_on_card_matches_per_block():
 # ------------------------------------------------------ the lane mixdown
 
 
+# The kernel keeps 128 rows of a lane in flight, adds and refills them 16 at
+# a time and lists 1024 voices at a time: lane i of a "ring" draw holds
+# RING_COUNTS[i] voices, one below, at and above half that depth, the depth
+# and twice it.
+RING_COUNTS = (63, 64, 65, 127, 128, 129, 255, 256, 257)
+RING_VOICES = sum(RING_COUNTS) + 40          # and 40 voices of no lane
+
+
 def mixdown_inputs(seed: int, V: int, B: int, H: int = 0,
                    stray: bool = True, init: bool = False,
-                   per_slice_lanes: bool = False):
+                   per_slice_lanes: bool = False, lanes: str = "random"):
     """contrib [V, B, 2] (or [H, V, B, 2]) with exact zeros and -0.0 mixed
     in, lanes in [0, 12) plus (`stray`) lanes outside it, and an optional
-    non-zero init of the output's shape."""
+    non-zero init of the output's shape. `lanes` "one" puts every voice in
+    lane 3; "ring" (V = RING_VOICES) shuffles RING_COUNTS' lanes."""
     rng = np.random.default_rng(seed)
     shape = ((H,) if H else ()) + (V, B, 2)
     contrib = rng.standard_normal(shape).astype(np.float32)
@@ -293,6 +302,13 @@ def mixdown_inputs(seed: int, V: int, B: int, H: int = 0,
         odd = rng.random(lane_shape) < 0.15
         lane = np.where(odd, rng.choice([-7, -1, 12, 13, 100], lane_shape),
                         lane)
+    if lanes == "one":
+        lane = np.full(lane_shape, 3)
+    elif lanes == "ring":
+        assert V == RING_VOICES and lane_shape == (V,)
+        lane = rng.permutation(np.concatenate(
+            [np.full(n, i) for i, n in enumerate(RING_COUNTS)]
+            + [np.full(40, -1)]))
     out_shape = ((H,) if H else ()) + (12, B, 2)
     start = (rng.standard_normal(out_shape).astype(np.float32)
              if init else None)
@@ -332,6 +348,61 @@ def test_mixdown_plain_is_the_in_order_fold(case):
         init=None if init is None else torch.from_numpy(init)).numpy()
     np.testing.assert_array_equal(_bits(got),
                                   _bits(scalar_fold(contrib, lane, init)))
+
+
+# Shapes the kernel's tiling makes special: E = 2B not a multiple of the
+# 128-element tile or of 4 (8-byte copies), lanes one below, at and above
+# the ring's depth, every voice in one lane (many rings deep), V not a
+# multiple of 32 or 256 and past the 1024 of one listing, E = 2.
+TILING_CASES = [
+    dict(V=RING_VOICES, B=6, lanes="ring"),
+    dict(V=RING_VOICES, B=65, lanes="ring", init=True),
+    dict(V=1024, B=16, lanes="one"),
+    dict(V=2500, B=33, lanes="one", init=True),
+    dict(V=1000, B=100),
+    dict(V=1025, B=64, H=2, per_slice_lanes=True),
+    dict(V=300, B=1, init=True),
+    dict(V=77, B=130, H=3, init=True),
+]
+
+
+def _case_id(case):
+    return "-".join(f"{k}{v}" for k, v in case.items())
+
+
+@pytest.mark.parametrize("case", TILING_CASES, ids=_case_id)
+def test_mixdown_plain_at_the_kernel_tiling_edges(case):
+    contrib, lane, init = mixdown_inputs(26, **case)
+    got = md.lane_mixdown_plain(
+        torch.from_numpy(contrib), torch.from_numpy(lane),
+        init=None if init is None else torch.from_numpy(init)).numpy()
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(scalar_fold(contrib, lane, init)))
+
+
+def test_mixdown_plain_leaves_its_init_alone():
+    """The kernel's `out` may alias `init`; the plain version returns a new
+    tensor and the same bits."""
+    contrib, lane, init = mixdown_inputs(27, 90, 12, init=True)
+    start = torch.from_numpy(init.copy())
+    got = md.lane_mixdown_plain(torch.from_numpy(contrib),
+                                torch.from_numpy(lane), init=start)
+    assert torch.equal(start, torch.from_numpy(init))
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(scalar_fold(contrib, lane, init)))
+
+
+def test_mixdown_plain_from_an_unaligned_view():
+    """Contributions that start 4 bytes into their storage (the kernel's
+    narrowest path on the card) fold to the same bits."""
+    contrib, lane, _ = mixdown_inputs(28, 70, 10)
+    flat = torch.zeros(contrib.size + 1)
+    flat[1:] = torch.from_numpy(contrib).reshape(-1)
+    view = flat[1:].view(70, 10, 2)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    np.testing.assert_array_equal(
+        _bits(md.lane_mixdown(view, torch.from_numpy(lane)).numpy()),
+        _bits(scalar_fold(contrib, lane)))
 
 
 @pytest.mark.parametrize("k", [2, 3, 5, 8])
@@ -385,10 +456,10 @@ def test_lane_mixdown_refuses_other_devices():
     dict(V=300, B=100, init=True), dict(V=1, B=1), dict(V=0, B=64, init=True),
     dict(V=513, B=1000, stray=False)])
 def test_mixdown_kernel_matches_plain_on_card(case):
-    """Bit-equal to the plain version: 256 voices a chunk (V=300, 513
-    leave a partial one), frames not a multiple of the CTA (B=100, 1000),
-    stacked horizons with shared and per-slice lanes, lanes outside
-    [0, 12), a non-zero init, no voices at all."""
+    """Bit-equal to the plain version: V not a multiple of 32 (300, 513),
+    frames not a multiple of a tile (B=100, 1000), stacked horizons with
+    shared and per-slice lanes, lanes outside [0, 12), a non-zero init, no
+    voices at all."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     contrib, lane, init = mixdown_inputs(31, **case)
@@ -403,6 +474,72 @@ def test_mixdown_kernel_matches_plain_on_card(case):
     assert torch.equal(got, want)
     np.testing.assert_array_equal(_bits(got.cpu().numpy()),
                                   _bits(want.cpu().numpy()))
+
+
+def _copy_widths(B: int):
+    """The copy widths (floats a chunk) E = 2B allows for 16-byte aligned
+    tensors, 0 (the kernel's own choice: the widest) first."""
+    return [0] + [vec for vec in (4, 2, 1) if 2 * B % vec == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILING_CASES + [
+    dict(V=1024, B=128, stray=False), dict(V=1024, B=1024, stray=False)],
+    ids=_case_id)
+def test_mixdown_kernel_matches_plain_at_the_tiling_edges(case):
+    """TILING_CASES and the main path's shapes through the kernel's own copy
+    width and through each the shape allows: bit-equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, init = mixdown_inputs(26, **case)
+    c, ln = torch.from_numpy(contrib).cuda(), torch.from_numpy(lane).cuda()
+    start = None if init is None else torch.from_numpy(init).cuda()
+    want = md.lane_mixdown_plain(c, ln, init=start)
+    for vec in _copy_widths(case["B"]):
+        got = md.launch_kernel(c, ln, init=start, vec=vec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"copy width {vec}"
+    if 2 * case["B"] % 4:
+        with pytest.raises(RuntimeError):
+            md.launch_kernel(c, ln, init=start, vec=4)
+
+
+@pytest.mark.cuda
+def test_mixdown_kernel_writes_over_its_init_on_card():
+    """`out` aliasing `init`, through the C entry point: the bits of a call
+    with a separate output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, init = mixdown_inputs(27, 1024, 128, H=2, init=True)
+    c, ln = torch.from_numpy(contrib).cuda(), torch.from_numpy(lane).cuda()
+    start = torch.from_numpy(init).cuda()
+    want = md.lane_mixdown(c, ln, init=start)
+    lib = _build.load()
+    code = lib.zl_lane_mixdown(
+        c.data_ptr(), ln.data_ptr(), 0, start.data_ptr(), start.data_ptr(),
+        2, 1024, 256, 12, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert torch.equal(start, want)
+
+
+@pytest.mark.cuda
+def test_mixdown_kernel_from_an_unaligned_view_on_card():
+    """Contributions 4 bytes into their storage are copied in one-float
+    chunks (wider ones are refused) and keep the bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    contrib, lane, _ = mixdown_inputs(28, 1024, 128)
+    flat = torch.zeros(contrib.size + 1, device="cuda")
+    flat[1:] = torch.from_numpy(contrib).reshape(-1).cuda()
+    view, ln = flat[1:].view(1024, 128, 2), torch.from_numpy(lane).cuda()
+    want = md.lane_mixdown_plain(view, ln)
+    assert torch.equal(md.lane_mixdown(view, ln), want)
+    assert torch.equal(md.launch_kernel(view, ln, vec=1), want)
+    with pytest.raises(RuntimeError):
+        md.launch_kernel(view, ln, vec=2)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
