@@ -5,6 +5,7 @@
                           [--soak-seconds S] [--soak-event-seconds S]
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
     python3 chip_smoke.py --mixdown-only      # phases 1, 2, the mixdown's 3, 5
+    python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -114,11 +115,24 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 15. bench       — the port's benchmark (python -m libzl_tpu_torch.bench) in
    process at its short sizes: every key of its line present, every cell
    finite and positive, none failed or skipped, no share of a bound over
-   100, both kernels launched; the line printed behind the card's name.
+   100, both kernels launched; the line printed behind the card's name;
+16. graphs      — render graphs (libzl_tpu_torch/engine/graphs.py): a
+   default engine's every captured graph (B=128 and B=1024, f32 and int16
+   banks) replayed on the session's real programs, every output field
+   bit-equal to the eager render_block_sharded / render_horizon_sharded of
+   the same program; a 384-block default session at B=128 with graphs
+   ("auto") and without ("off") in lockstep, bit-equal every block across a
+   clip load, a strips change and a note-off; then, for each path in
+   turns (auto, off, off, auto), the superblock realtime factor and
+   process_block p50, the live p50 and chained mean, the default engine's
+   p50, mean, horizon build and adoption spans at B=128, its paced lag,
+   its realtime factor at B=1024, the pump's share of its periods, and
+   warmup's seconds, capture seconds, graph count, graph memory and
+   memory_reserved growth.
 
 Every phase prints its wall seconds. The line before the last holds the
 kernels' record as JSON, one entry a kernel (its launches are those of
-phases 4, 6, 7, 8, 13, 14 and 15, each counted from 0 around its run; `ms`,
+phases 4, 6, 7, 8, 13, 14, 15 and 16, each counted from 0 around its run; `ms`,
 `plain_ms`, `bound_ms` and `library_ms` are those of the inputs named by its
 `inputs`: for the fetch fixed synthetic inputs, with its `session_` keys
 those of the session's last per-block dispatch at B=1024; for the mixdown
@@ -228,15 +242,20 @@ def renders(engines) -> int:
 
 
 def reset_counts(engines) -> None:
-    """Zero the engines' dispatch counts."""
+    """Zero the engines' dispatch counts and their render graphs' replay
+    counts."""
     for e in engines:
         e.fetch_dispatches = {"windows": 0, "gather": 0}
         e.render_dispatches = {"block": 0, "horizon": 0}
+        e.late_captures = 0
+        if e._graphs is not None:
+            e._graphs.replays = e._graphs.stale = 0
 
 
 def check_launches(launches: dict, windows: int, engines, label: str):
     """The fetch kernel launched once a windows block (x shards: `windows`
-    counts them), the mixdown once a shard a render."""
+    counts them), the mixdown once a shard a render; every render of a
+    one-shard engine a graph replay or a capture (check_graph_renders)."""
     check(launches["fetch_interp"] == windows,
           f"{label}: fetch kernel launched {launches['fetch_interp']} times "
           f"for {windows} windows blocks")
@@ -244,6 +263,39 @@ def check_launches(launches: dict, windows: int, engines, label: str):
     check(launches["lane_mixdown"] == want,
           f"{label}: mixdown kernel launched {launches['lane_mixdown']} "
           f"times for {want} shard renders")
+    for e in engines:
+        check_graph_renders(e, label)
+
+
+def check_graph_renders(engine, label: str) -> None:
+    """A one-shard engine with render graphs replayed a captured graph for
+    every render since its counts were zeroed, or captured one then (late
+    captures; stale renders: the bank grew under a queued render). A mesh
+    of k > 1 renders eagerly."""
+    stats = engine.stats()
+    if engine.mesh.size > 1 or engine.render_graphs == "off":
+        check(stats["render_graphs"] == "eager",
+              f"{label}: {stats['render_graphs']} renders")
+        return
+    n = sum(engine.render_dispatches.values())
+    got = (stats["graph_replays"] + stats["late_captures"]
+           + stats["graph_stale_renders"])
+    check(stats["render_graphs"] == "graphs" and n == got,
+          f"{label}: {n} renders, {stats['graph_replays']} graph replays + "
+          f"{stats['late_captures']} late captures + "
+          f"{stats['graph_stale_renders']} stale")
+
+
+@contextlib.contextmanager
+def eager_renders(engine):
+    """The engine's renders dispatched eagerly inside the block, as with
+    render_graphs "off": a replayed graph makes no kernel call from Python
+    for bench.capture_calls to see."""
+    graphs, engine._graphs = engine._graphs, None
+    try:
+        yield
+    finally:
+        engine._graphs = graphs
 
 
 def note_off(engine, voice: int) -> None:
@@ -740,9 +792,9 @@ def phase_default_engine(device) -> dict:
 
 def _device_profile(engine, n_blocks: int) -> dict:
     """Device time per block from torch.profiler's CUDA kernel events over
-    `n_blocks` chained blocks: total, kernel launches, and the shares of
-    the fetch and mixdown kernels. Empty when the profiler sees no device
-    events."""
+    `n_blocks` chained blocks, the speculation drained before the profiler
+    stops: total, kernel launches, and the shares of the fetch and mixdown
+    kernels. Empty when the profiler sees no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,6 +803,10 @@ def _device_profile(engine, n_blocks: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_blocks):
             engine.process_block()
+        # no graph replay on the spec dispatch thread while the profiler
+        # stops: that stop deadlocks against a graph launch on another
+        # thread (AudioEngine.capture_trace)
+        engine.drain_speculation()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in dev)
@@ -785,7 +841,8 @@ def capture_dispatch(engine) -> tuple:
     """(fetch (args, r_max), mixdown (contrib, lane, init)) of one more
     block of a one-device per-block engine: the session's last per-block
     dispatch."""
-    calls = bench.capture_calls(engine.process_block)
+    with eager_renders(engine):
+        calls = bench.capture_calls(engine.process_block)
     torch.cuda.synchronize()
     check(len(calls["fetch"]) == 1 and len(calls["mixdown"]) == 1,
           f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
@@ -1205,6 +1262,323 @@ def _default_timing(device, card: str, res: dict) -> None:
           f"{json.dumps(stats['slo_by_kind'])}; spans "
           f"{json.dumps(res['paced_128_spans'])}")
     e.drain_speculation()
+
+
+# ------------------------------------------------- render graphs (16)
+
+GRAPH_SESSION_BLOCKS = 384
+GRAPH_MODES = ("auto", "off", "off", "auto")   # in turns
+
+
+def graph_engine(device, B: int, **opts):
+    """A default engine (or `opts`) on `device` with the session built."""
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    e = AudioEngine(device, sample_rate=SAMPLE_RATE, block_frames=B,
+                    num_voices=NUM_VOICES, **opts)
+    build_session(e)
+    return e
+
+
+def measured_warmup(e) -> dict:
+    """warmup() with its wall seconds, the graphs it left and the growth of
+    torch.cuda.memory_reserved across it."""
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    e.warmup()
+    torch.cuda.synchronize()
+    stats = e.stats()
+    return dict(warmup_s=time.perf_counter() - t0, graphs=stats["graphs"],
+                capture_s=stats["graph_capture_s"],
+                graph_bytes=stats["graph_bytes"],
+                reserved_growth=torch.cuda.memory_reserved() - reserved)
+
+
+def session_programs(e, n: int) -> dict:
+    """{kind: the last host program of that kind} of `n` more blocks."""
+    seen, real = {}, e._render
+
+    def spy(kind, fetch, rmax, prog, *a, **k):
+        seen[kind] = prog.copy()
+        return real(kind, fetch, rmax, prog, *a, **k)
+
+    e._render = spy
+    try:
+        for _ in range(n):
+            e.process_block()
+        e.drain_speculation()
+    finally:
+        del e._render
+    return seen
+
+
+def check_replays(e, progs: dict, label: str) -> int:
+    """Every graph of `e` replayed on a real program of the session (its
+    first `voices` rows) against the eager render_block_sharded /
+    render_horizon_sharded of the same program on the same bank and
+    strips: every output field torch.equal. Returns the graphs checked."""
+    from libzl_tpu_torch.engine.graphs import flatten
+
+    g = e._graphs
+    keys = g.keys()
+    for key in keys:
+        prog = np.ascontiguousarray(progs[key.kind][:key.voices])
+        sound = e._sound_data_for_backend()
+        fn = e._render_fn(key.kind, key.fetch, key.rmax, sound,
+                          e._packed_strips_for_backend(), prog.shape[1])
+        got, captured = g.render(key, fn, prog, sound)
+        want = fn(prog)
+        check(not captured, f"{label}: {key} was not captured by warmup")
+        for a, b in zip(flatten(got), flatten(want)):
+            err = float((a - b).abs().max())
+            check(torch.equal(a, b), f"{label}: replay of {key} differs "
+                  f"from the eager render by {err:.3e}")
+    check(len(keys) > 0, f"{label}: no graph captured")
+    return len(keys)
+
+
+def graph_session(device) -> dict:
+    """The default session at B=128 through two cuda engines in lockstep,
+    render_graphs "auto" and "off", GRAPH_SESSION_BLOCKS blocks with a clip
+    load (a new bank version, played), a strips change and a note-off:
+    every block's every output field torch.equal; the kernels' launches
+    equal the two engines' windows blocks and renders, every render of the
+    graph engine a replay or a capture."""
+    from libzl_tpu_torch.engine.graphs import flatten
+    from libzl_tpu_torch.io.wav import AudioData
+    from libzl_tpu_torch.models.clip import ClipAudioSource
+
+    engines = [graph_engine(device, LIVE_BLOCK, render_graphs=m)
+               for m in ("auto", "off")]
+    for e in engines:
+        e.warmup()
+    torch.cuda.synchronize()
+    reset_counts(engines)
+    reset_launches()
+    t = np.arange(SAMPLE_RATE) / SAMPLE_RATE
+    wave = (0.3 * np.sin(2 * np.pi * 523.25 * t)).astype(np.float32)
+    events = 0
+    for i in range(GRAPH_SESSION_BLOCKS):
+        for e in engines:
+            if i == 100:
+                clip = ClipAudioSource(e, audio=AudioData(wave[:, None],
+                                                          SAMPLE_RATE))
+                clip.play(loop=True, midi_channel=3)
+            if i == 200:
+                e.set_strip(4, dry=0.55, pan=0.25)
+            if i == 300:
+                note_off(e, 7)
+        got, want = (e.process_block().outputs for e in engines)
+        for a, b in zip(flatten(got), flatten(want)):
+            check(torch.equal(a, b), f"graph session block {i}: auto "
+                  f"differs from off by {float((a - b).abs().max()):.3e}")
+        events += i in (100, 200, 300)
+    for e in engines:
+        e.drain_speculation()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, sum(e.fetch_dispatches["windows"]
+                                 for e in engines), engines, "graph session")
+    check(sum(e.fetch_dispatches["gather"] for e in engines) == 0,
+          "graph session: a block fell back to the gather fetch")
+    for e in engines:
+        check(e.stats()["spec_failures"] == 0, f"graph session: speculative "
+              f"build failed: {e.stats()['spec_last_failure']}")
+    stats = engines[0].stats()
+    return dict(blocks=GRAPH_SESSION_BLOCKS, launches=launches,
+                renders=dict(engines[0].render_dispatches),
+                replays=stats["graph_replays"],
+                late_captures=stats["late_captures"],
+                recaptures=stats["graph_recaptures"],
+                stale=stats["graph_stale_renders"],
+                adoptions=stats["slo_by_kind"].get("adopt", [0, 0])[1])
+
+
+def mode_timing(device, mode: str) -> dict:
+    """One path's end-to-end numbers: the per-block engine's superblock
+    realtime factor and process_block p50 (B=1024, 3 x 40 chained) and live
+    p50 / chained mean (B=128, 300 blocks); the default engine at B=128
+    (320 chained blocks: process_block p50 and mean, the horizon build and
+    adoption wait spans, SLO misses), paced (384 blocks, one a period: the
+    lag) and its warmup; the default engine's realtime factor at B=1024
+    (120 chained blocks) and its warmup;
+    the ABI pump's share of its periods (PUMP_SECONDS)."""
+    out = {}
+    e = graph_engine(device, SUPER_BLOCK, render_graphs=mode, **PER_BLOCK)
+    e.warmup()
+    for _ in range(10):
+        e.process_block()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(40):
+            o = e.process_block()
+        o.outputs.master.cpu()
+        rounds.append(40 * SUPER_BLOCK / SAMPLE_RATE
+                      / (time.perf_counter() - t0))
+    out["rt_superblock"] = float(np.median(rounds))
+    prof = e.profiler.summary()
+    out["super_ms_p50"] = prof["process_block"]["p50_ms"]
+    out["super_dispatch_ms_p50"] = prof["dispatch"]["p50_ms"]
+    del e
+
+    e = graph_engine(device, LIVE_BLOCK, render_graphs=mode, **PER_BLOCK)
+    e.warmup()
+    for _ in range(20):
+        e.process_block()
+    torch.cuda.synchronize()
+    ms, t0 = [], time.perf_counter()
+    for _ in range(300):
+        t1 = time.perf_counter()
+        o = e.process_block()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    o.outputs.master.cpu()
+    out["live_ms_p50"] = float(np.median(ms))
+    out["live_ms_chained_mean"] = (time.perf_counter() - t0) * 1e3 / 300
+    out["live_dispatch_ms_p50"] = e.profiler.summary()["dispatch"]["p50_ms"]
+    del e
+
+    e = graph_engine(device, LIVE_BLOCK, render_graphs=mode)
+    out.update({f"default_128_{k}": v
+                for k, v in measured_warmup(e).items()})
+    for _ in range(3 + 4 * e._lookahead):
+        e.process_block()
+    torch.cuda.synchronize()
+    ms, t0 = [], time.perf_counter()
+    for _ in range(320):
+        t1 = time.perf_counter()
+        o = e.process_block()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    o.outputs.master.cpu()
+    out["default_128_ms_p50"] = float(np.median(ms))
+    out["default_128_ms_mean"] = float(np.mean(ms))
+    out["default_128_rt"] = 320 * LIVE_BLOCK / SAMPLE_RATE / (
+        time.perf_counter() - t0)
+    out["default_128_spans"] = _spans(e)
+    out["default_128_slo_by_kind"] = e.stats()["slo_by_kind"]
+    from libzl_tpu_torch.utils.profiling import SloCounter
+
+    period = LIVE_BLOCK / SAMPLE_RATE
+    e.slo = SloCounter(budget_seconds=period)
+    t0 = time.perf_counter()
+    for i in range(384):
+        wait = t0 + i * period - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        o = e.process_block()
+    o.outputs.master.cpu()
+    out["paced_128_lag_ms"] = (time.perf_counter() - t0 - 384 * period) * 1e3
+    out["paced_128_slo_by_kind"] = e.stats()["slo_by_kind"]
+    check(e.stats()["spec_failures"] == 0,
+          f"{mode}: speculative build failed")
+    e.drain_speculation()
+    del e
+
+    e = graph_engine(device, SUPER_BLOCK, render_graphs=mode)
+    out.update({f"default_1024_{k}": v
+                for k, v in measured_warmup(e).items()})
+    for _ in range(3 + 4 * e._lookahead):
+        e.process_block()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(120):
+        o = e.process_block()
+    o.outputs.master.cpu()
+    out["default_1024_rt"] = 120 * SUPER_BLOCK / SAMPLE_RATE / (
+        time.perf_counter() - t0)
+    e.drain_speculation()
+    del e
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = bench.measure_pump(device, bench.write_session_wavs(tmp),
+                               PUMP_SECONDS, render_graphs=mode)
+    check(r["error"] is None, f"{mode} pump error: {r['error']!r}")
+    out["pump_share"] = r["share"]
+    out["pump_graphs"] = r["stats"]["graphs"]
+    out["pump_late_captures"] = r["stats"]["late_captures"]
+    out["pump_recaptures"] = r["stats"]["graph_recaptures"]
+    return out
+
+
+def phase_graphs(device, card: str) -> dict:
+    """Render graphs (engine/graphs.py): every graph of a default engine
+    (B=128 and B=1024; f32 and int16 banks) replayed on the session's real
+    programs, bit-equal to the eager render; a GRAPH_SESSION_BLOCKS-block
+    session with graphs bit-equal to the same session eager; then each
+    path's end-to-end numbers (mode_timing), in turns."""
+    res = {}
+    for B in (LIVE_BLOCK, SUPER_BLOCK):
+        for bank in ("float32", "int16"):
+            t0 = time.perf_counter()
+            e = graph_engine(device, B, bank_dtype=bank)
+            warm = measured_warmup(e)
+            progs = session_programs(e, 3 + 2 * e._lookahead + 4)
+            check(set(progs) == {"block", "horizon"},
+                  f"B={B}: the session dispatched {sorted(progs)}")
+            n = check_replays(e, progs, f"B={B} {bank} bank")
+            label = f"{B}_{bank}"
+            res[f"replays_checked_{label}"] = n
+            res[f"warmup_{label}"] = warm
+            keys = sorted((k.kind, k.voices, k.rmax, k.fetch)
+                          for k in e._graphs.keys())
+            print(f"[{card}] graphs B={B} {bank} bank: {n} graphs (keys "
+                  f"{keys}), "
+                  f"each replay bit-equal to the eager render (max abs "
+                  f"error 0); warmup {warm['warmup_s']:.3f} s, capture "
+                  f"{warm['capture_s']:.3f} s, graphs hold "
+                  f"{warm['graph_bytes'] / 2**20:.1f} MiB, memory_reserved "
+                  f"+{warm['reserved_growth'] / 2**20:.1f} MiB "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            del e
+    t0 = time.perf_counter()
+    sess = graph_session(device)
+    res["session"] = sess
+    print(f"[{card}] graphs session B=128: {sess['blocks']} blocks with a "
+          f"clip load, a strips change and a note-off, render_graphs auto "
+          f"bit-equal to off every block; graph engine renders "
+          f"{json.dumps(sess['renders'])} = {sess['replays']} replays + "
+          f"{sess['late_captures']} late captures + {sess['stale']} stale "
+          f"({sess['recaptures']} recaptures, {sess['adoptions']} "
+          f"adoptions); kernel launches {json.dumps(sess['launches'])} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    runs = {m: [] for m in GRAPH_MODES}
+    for mode in GRAPH_MODES:
+        t0 = time.perf_counter()
+        runs[mode].append(mode_timing(device, mode))
+        print(f"graphs timing {mode}: {time.perf_counter() - t0:.1f} s")
+    for mode, rs in runs.items():
+        res[mode] = rs
+        for i, r in enumerate(rs):
+            print(f"[{card}] render_graphs={mode} (run {i + 1}): superblock "
+                  f"realtime {r['rt_superblock']:.3f}x, process_block p50 "
+                  f"{r['super_ms_p50']:.4f} ms (B=1024, per-block); live "
+                  f"p50 {r['live_ms_p50']:.4f} ms, chained mean "
+                  f"{r['live_ms_chained_mean']:.4f} ms, dispatch p50 "
+                  f"{r['live_dispatch_ms_p50']:.4f} ms (B=128, per-block); "
+                  f"default B=128 p50 {r['default_128_ms_p50']:.4f} mean "
+                  f"{r['default_128_ms_mean']:.4f} ms, realtime "
+                  f"{r['default_128_rt']:.3f}x, spans "
+                  f"{json.dumps(r['default_128_spans'])}, slo_by_kind "
+                  f"{json.dumps(r['default_128_slo_by_kind'])}; paced lag "
+                  f"{r['paced_128_lag_ms']:.1f} ms, slo_by_kind "
+                  f"{json.dumps(r['paced_128_slo_by_kind'])}; default "
+                  f"B=1024 realtime {r['default_1024_rt']:.3f}x; pump share "
+                  f"{r['pump_share']:.3f} ({r['pump_graphs']} graphs, "
+                  f"{r['pump_late_captures']} late captures, "
+                  f"{r['pump_recaptures']} recaptures); warmup B=128 "
+                  f"{r['default_128_warmup_s']:.3f} s "
+                  f"({r['default_128_graphs']} graphs, capture {r['default_128_capture_s']:.3f} s, "
+                  f"{r['default_128_graph_bytes'] / 2**20:.1f} MiB, reserved "
+                  f"+{r['default_128_reserved_growth'] / 2**20:.1f} MiB), "
+                  f"B=1024 {r['default_1024_warmup_s']:.3f} s "
+                  f"({r['default_1024_graphs']} graphs, capture "
+                  f"{r['default_1024_capture_s']:.3f} s, "
+                  f"{r['default_1024_graph_bytes'] / 2**20:.1f} MiB, reserved "
+                  f"+{r['default_1024_reserved_growth'] / 2**20:.1f} MiB)")
+    torch.cuda.synchronize()
+    return res
 
 
 # ----------------------------------------------- the C ABI slice (7-11)
@@ -1973,6 +2347,9 @@ def main() -> int:
                     help="run phases 1 and 2, then only the lane mixdown's "
                          "part of phase 3 and its timings of phase 5 (on "
                          "random contributions at the session's lanes)")
+    ap.add_argument("--graphs-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 16 (render "
+                         "graphs)")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="run phases 1 and 2, then only phase 13 across "
                          "every visible card (needs two or more)")
@@ -2001,6 +2378,13 @@ def main() -> int:
         print(card)
         print(json.dumps({"mesh_cards_launches": launches,
                           "count": torch.cuda.device_count()}))
+        return 0
+    if opts.graphs_only:
+        with _phase("16 graphs"):
+            graphs = phase_graphs(device, card)
+        print(f"graphs: {json.dumps(graphs)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
         return 0
     check(not {"kernel", "plain", "library", "empty", "copy8", "copy4"}
           & (set(versions) | set(mix_versions)),
@@ -2054,11 +2438,15 @@ def main() -> int:
     with _phase("15 bench"):
         bench_line, bench_launches = phase_bench(card)
     launches = add_launches(launches, bench_launches)
+    with _phase("16 graphs"):
+        graphs = phase_graphs(device, card)
+    launches = add_launches(launches, graphs["session"]["launches"])
     print(f"timing: {json.dumps(timing)}")
     print(f"stretch: {json.dumps(stretch)}")
     print(f"mesh timing: {json.dumps(mesh_timing)}")
     print(f"bench: {json.dumps(bench_line)}")
-    print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14, 15): "
+    print(f"graphs: {json.dumps(graphs)}")
+    print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14, 15, 16): "
           f"{json.dumps(launches)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

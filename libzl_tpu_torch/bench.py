@@ -680,7 +680,7 @@ def abi_session(bridge, wavs: list, num_voices: int = NUM_VOICES) -> None:
 
 def measure_pump(device, wavs: list, seconds: float = 5.0,
                  num_voices: int = NUM_VOICES, before=None,
-                 after=None) -> dict:
+                 after=None, render_graphs: str = "auto") -> dict:
     """The C ABI's wall-clock pump on `device` with a null sink and
     per-block delivery (bounce drain 1: what a pacing sink gets), the
     session loaded through the ABI while it runs, `seconds` of it measured:
@@ -688,12 +688,14 @@ def measure_pump(device, wavs: list, seconds: float = 5.0,
     their ratio (`share`: 1.0 is realtime), with the engine's stats, the
     runtime's phase_stats and copy_wait span and the pump's error. `before(
     runtime)` runs once the pump is up, `after(engine)` once it has stopped
-    and the speculation drained; its result is returned as "after"."""
+    and the speculation drained; its result is returned as "after".
+    `render_graphs` is the engine's (LIBZL_TPU_RENDER_GRAPHS)."""
     from .capi import bridge
 
     with env_set(LIBZL_TPU_NO_PUMP=None, LIBZL_TPU_BACKEND=str(device),
                  LIBZL_TPU_VOICES=num_voices, LIBZL_TPU_BLOCK=LIVE_BLOCK,
-                 LIBZL_TPU_BOUNCE_DRAIN=1, LIBZL_TPU_SINK="null"):
+                 LIBZL_TPU_BOUNCE_DRAIN=1, LIBZL_TPU_SINK="null",
+                 LIBZL_TPU_RENDER_GRAPHS=render_graphs):
         bridge.init_engine()
     try:
         rt = bridge._rt()

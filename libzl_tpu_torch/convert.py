@@ -28,25 +28,35 @@ def quantize_bank(data: np.ndarray, bank_dtype: str) -> np.ndarray:
     ).astype(np.int16)
 
 
-def sound_bank_tensor(data: np.ndarray, device, bank_dtype: str = "float32",
-                      layout: str = "planar") -> torch.Tensor:
-    """SoundBank.data (planar [2, N] f32) -> a device tensor, planar [2, N]
-    (the windows fetch) or interleaved [N, 2] (the gather fetch: one row
-    index reads the stereo pair), f32 or int16. Always a copy: the bank
-    keeps mutating on the host while the device renders the last upload."""
+def sound_bank_array(data: np.ndarray, bank_dtype: str = "float32",
+                     layout: str = "planar") -> np.ndarray:
+    """SoundBank.data (planar [2, N] f32) -> the contiguous host array the
+    device holds: planar [2, N] (the windows fetch) or interleaved [N, 2]
+    (the gather fetch: one row index reads the stereo pair), f32 or
+    int16."""
     arr = quantize_bank(data, bank_dtype)
     if layout == "interleaved":
         arr = arr.T
     elif layout != "planar":
         raise ValueError(f"layout must be planar|interleaved: {layout}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
+    return np.ascontiguousarray(arr)
+
+
+def sound_bank_tensor(data: np.ndarray, device, bank_dtype: str = "float32",
+                      layout: str = "planar") -> torch.Tensor:
+    """sound_bank_array on `device`. Always a copy: the bank keeps mutating
+    on the host while the device renders the last upload."""
+    return torch.from_numpy(sound_bank_array(data, bank_dtype, layout)).to(
+        device, copy=True)
 
 
 def upload(arr, device) -> torch.Tensor:
     """A host array -> a device tensor. On CUDA the upload goes through
     pinned memory without blocking the host; on the CPU it is a copy, so
     the caller may reuse the array. A tensor (a program kept on the device
-    and rendered again) goes to `device` as it is."""
+    and rendered again) goes to `device` as it is. The eager render's
+    upload: a render graph stages its program through its own pinned
+    buffers instead (engine/graphs.py)."""
     device = torch.device(device)
     if isinstance(arr, torch.Tensor):
         return arr.to(device)

@@ -33,7 +33,10 @@ pool voice order (ops/mixdown.py), so a mesh gives the unsharded engine's
 bits; the outputs land on the first device, which is the engine's. Without
 a mesh the engine's one device is the mesh: one shard, the same dispatch.
 `render_dispatches` counts the per-block and horizon renders (each launches
-the lane mixdown once a shard).
+the lane mixdown once a shard). Each render of a one-device engine replays a
+CUDA graph captured for its (kind, bucket, rung) by warmup() or when first
+met (engine/graphs.py, the reference's compile-once jit executables);
+`render_graphs="off"` and meshes of k > 1 enqueue every kernel eagerly.
 
 Two of the reference's faults are not carried over: the speculation depth
 (LIBZL_TPU_SPEC_DEPTH) is parsed at engine construction and a bad value
@@ -98,6 +101,7 @@ from ..utils.profiling import (
     EventWatchdog,
     SloCounter,
 )
+from . import graphs as graphs_mod
 from . import hostcore as _hostcore
 from . import render as render_mod
 from .allocator import VoiceAllocator
@@ -305,11 +309,14 @@ class AudioEngine:
         voice_buckets: str = "auto",
         ratio_ladder: str = "auto",
         mesh=None,
+        render_graphs: str = "auto",
     ):
         if voice_buckets not in ("auto", "off"):
             raise ValueError("voice_buckets must be 'auto' or 'off'")
         if ratio_ladder not in ("auto", "off"):
             raise ValueError("ratio_ladder must be auto|off")
+        if render_graphs not in ("auto", "off"):
+            raise ValueError("render_graphs must be auto|off")
         # the speculative chain's depth, checked here and not mid-session
         self._spec_depth = spec_depth_from_env()
         # explicit device: "cuda" without a card raises (device.py)
@@ -333,6 +340,16 @@ class AudioEngine:
                     f"device {str(device)!r} is not the mesh's first device "
                     f"{mesh.devices[0]}: the engine's outputs live there")
         self.mesh = mesh
+        # Render graphs (engine/graphs.py), the reference's compile-once
+        # executables: "auto" captures each (kind, bucket, rung) render in a
+        # CUDA graph (its plain version on the CPU) and replays it, one
+        # launch a block or horizon; "off" dispatches every render eagerly,
+        # for comparing the two. A mesh of k > 1 stays eager: its
+        # cross-device carry is not one graph.
+        self.render_graphs = render_graphs
+        self._graphs = (graphs_mod.RenderGraphs(self.device)
+                        if render_graphs == "auto" and mesh.size == 1
+                        else None)
         self.sample_rate = sample_rate
         self.block_frames = block_frames
         self.quirk_gain = quirk_gain
@@ -470,6 +487,9 @@ class AudioEngine:
         # renders dispatched (each launches the lane mixdown once a shard:
         # a per-block block, or a horizon's H slices stacked)
         self.render_dispatches = {"block": 0, "horizon": 0}
+        # graphs first captured mid-session (the reference's mid-session
+        # compile), not by warmup() or a rebind
+        self.late_captures = 0
         # speculative builds or dispatches that raised (the engine then
         # falls back to a synchronous horizon) and the last one's traceback
         self.spec_failures = 0
@@ -892,13 +912,74 @@ class AudioEngine:
         # ONE host->device buffer per shard and block (its rows of the
         # bucket's prefix of the pool): the program pair fuses into a single
         # int32 matrix (f32 columns bit-cast), uploaded from pinned memory on
-        # CUDA so the host runs ahead of the card
-        return sharding.render_block_sharded(
-            self.mesh, sound, fuse_packed(prog_i[:n], prog_f[:n]),
-            strips_packed, block_frames=self.block_frames,
-            quirk_gain=self.quirk_gain, fetch=fetch, max_pitch_ratio=rmax,
-            pad_voices_to=V,
-        )
+        # CUDA (a graph's own staging buffer) so the host runs ahead of the
+        # card
+        return self._render("block", fetch, rmax,
+                            fuse_packed(prog_i[:n], prog_f[:n]), sound,
+                            strips_packed)
+
+    def _render_fn(self, kind: str, fetch: str, rmax: float, sound, strips,
+                   cols: int):
+        """The render of one (kind, fetch, rung) as a function of the
+        program (a host array, or the device tensor a graph captures), on
+        `sound` and `strips`: the eager dispatch, and what a graph
+        records."""
+        mesh, B, V = self.mesh, self.block_frames, self.pool.num_voices
+        quirk = self.quirk_gain
+        if kind == "block":
+            def fn(prog):
+                return sharding.render_block_sharded(
+                    mesh, sound, prog, strips, block_frames=B,
+                    quirk_gain=quirk, fetch=fetch, max_pitch_ratio=rmax,
+                    pad_voices_to=V)
+            return fn
+        H = self._lookahead
+        # the base program's columns: the rest are the compact dynamics
+        base = cols - (1 + (H - 1) * horizon_dyn_cols(self.pool.n_bq_extra))
+
+        def fn(prog):
+            return sharding.render_horizon_sharded(
+                mesh, sound, prog, strips, block_frames=B, slices=H,
+                base_cols=base, quirk_gain=quirk, fetch=fetch,
+                max_pitch_ratio=rmax, pad_voices_to=V)
+        return fn
+
+    def _graph_key(self, kind: str, n: int, fetch: str, rmax: float,
+                   sound) -> graphs_mod.GraphKey:
+        bank = next(iter(sound.values()))
+        layout = "planar" if self.fetch.startswith("windows") else \
+            "interleaved"
+        return graphs_mod.GraphKey(
+            kind, n, fetch, float(rmax),
+            self._lookahead if kind == "horizon" else 1, self.quirk_gain,
+            (tuple(bank.shape), str(bank.dtype), layout))
+
+    def _render(self, kind: str, fetch: str, rmax: float, prog, sound,
+                strips, late: bool = True):
+        """One render of `prog` (a block's fused program, or a horizon's
+        one buffer, int32 on the host): a replay of its graph, captured the
+        first time it is met (counted in `late_captures` unless `late` is
+        False), or, with render_graphs "off" or a mesh of k > 1, the eager
+        dispatch. A RenderOutputs, or a tuple of H for a horizon."""
+        fn = self._render_fn(kind, fetch, rmax, sound, strips, prog.shape[1])
+        if self._graphs is None:
+            return fn(prog)
+        key = self._graph_key(kind, prog.shape[0], fetch, rmax, sound)
+        out, captured = self._graphs.render(key, fn, prog, sound,
+                                            warm=not late)
+        if captured and late:
+            with self._stats_lock:
+                self.late_captures += 1
+        return out
+
+    def _recapture(self, key: graphs_mod.GraphKey, cols: int) -> tuple:
+        """A graph's key and render on the engine's current bank and
+        strips (RenderGraphs.rebind)."""
+        sound, strips = self._device_sound_data, self._device_strips
+        key = self._graph_key(key.kind, key.voices, key.fetch, key.rmax,
+                              sound)
+        return key, self._render_fn(key.kind, key.fetch, key.rmax, sound,
+                                    strips, cols)
 
     # ------------------------------------------------- lookahead horizon
 
@@ -1051,16 +1132,14 @@ class AudioEngine:
                                   sound=None, strips=None):
         """Resolve what a compact-horizon dispatch needs (bucket, rung, the
         one int32 buffer of base program and dynamics) and return a
-        zero-argument closure that uploads it and enqueues the H slices'
-        render, touching no engine state but the fetch count. The
-        speculative path runs the closure on the dispatch worker: each shard
-        enters its own device and launches on that thread's current stream
-        (the legacy default stream, the engine thread's too)."""
+        zero-argument closure that renders the H slices (_render: a graph
+        replay, or the upload and eager enqueue), touching no engine state
+        but the counts. The speculative path runs the closure on the
+        dispatch worker: it launches on that thread's current stream (the
+        legacy default stream, the engine thread's too), each shard inside
+        its own device."""
         H = self._lookahead
-        B = self.block_frames
-        base = fuse_packed(prog_i0, prog_f0)
-        K = base.shape[1]
-        hz = np.concatenate([base, dyn], axis=1)
+        hz = np.concatenate([fuse_packed(prog_i0, prog_f0), dyn], axis=1)
         if sound is None:
             sound = self._sound_data_for_backend()
         if strips is None:
@@ -1078,15 +1157,9 @@ class AudioEngine:
         if bucket is not None and bucket < V:
             hz = hz[:bucket]
         kind = self._fetch_kind(fetch)
-        quirk = self.quirk_gain
-        mesh = self.mesh
 
         def dispatch() -> list:
-            outs = sharding.render_horizon_sharded(
-                mesh, sound, hz, strips, block_frames=B, slices=H,
-                base_cols=K, quirk_gain=quirk, fetch=fetch,
-                max_pitch_ratio=rmax, pad_voices_to=V,
-            )
+            outs = self._render("horizon", fetch, rmax, hz, sound, strips)
             self._count_render(kind, H, "horizon")
             return list(outs)
 
@@ -1300,17 +1373,36 @@ class AudioEngine:
         gather fetch (one row index reads the stereo pair). An int16 bank
         stays int16 on the device and dequantizes at the fetch. A dict
         {device: tensor}, one copy on each distinct mesh device (any voice
-        may fetch any sample)."""
+        may fetch any sample).
+
+        A new version is copied into the tensors in place while the bank's
+        capacity holds: a render graph reads the bank where it lay at
+        capture. The copy is ordered on this thread's current stream, after
+        every render enqueued there before it and before every later one
+        (the engine thread and the speculative dispatch thread both launch
+        on the legacy default stream). When the capacity grows, the bank is
+        uploaded anew and every graph is captured again on it
+        (RenderGraphs.rebind, `graph_recaptures` in stats())."""
         if self._bank_version_on_device != self.bank.version:
             self._check_bank_capacity()
             layout = ("planar" if self.fetch.startswith("windows")
                       else "interleaved")
-            self._device_sound_data = None  # free the old copies first
-            self._device_sound_data = {
-                dev: convert.sound_bank_tensor(
-                    self.bank.data, dev, self.bank_dtype, layout)
-                for dev in self.mesh.distinct()
-            }
+            host = torch.from_numpy(convert.sound_bank_array(
+                self.bank.data, self.bank_dtype, layout))
+            old = self._device_sound_data
+            if old is not None and all(t.shape == host.shape
+                                       for t in old.values()):
+                for t in old.values():
+                    t.copy_(host)
+            else:
+                self._device_sound_data = None  # free the old copies first
+                self._device_sound_data = {
+                    dev: host.to(dev, copy=True)
+                    for dev in self.mesh.distinct()
+                }
+                if self._graphs is not None:
+                    self._graphs.rebind(self._device_sound_data,
+                                        self._recapture)
             self._bank_version_on_device = self.bank.version
         return self._device_sound_data
 
@@ -1334,15 +1426,16 @@ class AudioEngine:
                 )
 
     def _packed_strips_for_backend(self):
-        """Strips change rarely (UI gestures): keep a device copy and
-        re-upload only when the packed values change."""
+        """Strips change rarely (UI gestures): keep one device copy and
+        write it in place, ordered like the bank's copy
+        (_sound_data_for_backend), only when the packed values change."""
         packed = pack_strips(self.strips)
-        if self._host_strips_snapshot is None or not np.array_equal(
-            packed, self._host_strips_snapshot
-        ):
+        if self._device_strips is None:
             self._device_strips = convert.strips_tensor(self.strips,
                                                         self.device)
-            self._host_strips_snapshot = packed
+        elif not np.array_equal(packed, self._host_strips_snapshot):
+            self._device_strips.copy_(torch.from_numpy(packed))
+        self._host_strips_snapshot = packed
         return self._device_strips
 
     def capture_trace(self, n_blocks: int, outdir: str) -> str:
@@ -1357,19 +1450,26 @@ class AudioEngine:
             for _ in range(max(1, int(n_blocks))):
                 res = self.process_block()
             res.outputs.master.cpu()   # the last block's render, in the trace
+            # the speculative dispatch thread may be replaying a render
+            # graph, and the profiler's stop deadlocks against a graph
+            # launch on another thread (seen on the H100): let it finish
+            self.drain_speculation()
         return path
 
     def warmup(self) -> int:
         """Build the CUDA kernels (the lane mixdown on every card render,
-        the windows fetch too), then render — from the current pool state,
-        without advancing it — every (bucket, rung, kind) the session can
-        dispatch, exactly the reference's work list: per-block renders (top
-        rung only in a lookahead engine), horizons at each bucket's allowed
-        rungs, and the full-pool gather fallback of a windows engine. A
+        the windows fetch too), then capture a render graph — from the
+        current pool state, without advancing it — for every (bucket, rung,
+        kind) the session can dispatch, exactly the reference's work list:
+        per-block renders (top rung only in a lookahead engine), horizons at
+        each bucket's allowed rungs, and the full-pool gather fallback of a
+        windows engine. A graph already captured is replayed instead; with
+        render_graphs "off", or a mesh of k > 1, each item renders once. A
         lookahead engine also starts both spec workers and renders the last
         item on the dispatch thread, so that thread's CUDA context exists
         before the session. Ends in one real device->host transfer. Returns
-        the number of renders (also `warmed_graphs`, in stats())."""
+        the number of items (also `warmed_graphs`, in stats(): with graphs,
+        each is one graph held)."""
         if self.device.type == "cuda":
             from .. import _build
 
@@ -1400,18 +1500,10 @@ class AudioEngine:
             if rmax is None:  # over-envelope gather fallback (full pool)
                 fetch, rmax = "gather", self.max_pitch_ratio
             if kind == "block":
-                return sharding.render_block_sharded(
-                    self.mesh, sound, fused[:s], strips,
-                    block_frames=self.block_frames,
-                    quirk_gain=self.quirk_gain, fetch=fetch,
-                    max_pitch_ratio=rmax, pad_voices_to=V,
-                )
-            return sharding.render_horizon_sharded(
-                self.mesh, sound, hz[:s], strips,
-                block_frames=self.block_frames, slices=H,
-                base_cols=fused.shape[1], quirk_gain=self.quirk_gain,
-                fetch=fetch, max_pitch_ratio=rmax, pad_voices_to=V,
-            )[0]
+                return self._render(kind, fetch, rmax, fused[:s], sound,
+                                    strips, late=False)
+            return self._render(kind, fetch, rmax, hz[:s], sound, strips,
+                                late=False)[0]
 
         work = []
         for s in self._bucket_ladder or [V]:
@@ -1471,9 +1563,25 @@ class AudioEngine:
         with self._stats_lock:
             spec_failures = self.spec_failures
             spec_last_failure = self.spec_last_failure
+            late_captures = self.late_captures
+        g = self._graphs
         return {
             "blocks": self.total_blocks,
             "warmed_graphs": self.warmed_graphs,
+            # "graphs": renders replay captured graphs; "eager": every
+            # render enqueues its kernels (render_graphs "off", or a mesh)
+            "render_graphs": "eager" if g is None else "graphs",
+            "graphs": 0 if g is None else len(g),
+            "graph_replays": 0 if g is None else g.replays,
+            "late_captures": late_captures,
+            "graph_recaptures": 0 if g is None else g.recaptures,
+            # renders whose bank was replaced while they waited (run once
+            # without a graph; a speculative one is then discarded)
+            "graph_stale_renders": 0 if g is None else g.stale,
+            "graph_capture_s": 0.0 if g is None else g.capture_seconds,
+            # device memory the graphs hold: their pools' growth at capture
+            # plus the static buffers
+            "graph_bytes": 0 if g is None else g.bytes,
             "slo_missed": self.slo.missed_blocks,
             "slo_total": self.slo.total_blocks,
             "slo_worst_overrun_ms": round(self.slo.worst_overrun * 1e3, 3),

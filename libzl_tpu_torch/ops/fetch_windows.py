@@ -22,6 +22,7 @@ import torch
 
 from ..constants import MAX_PITCH_RATIO, WINDOW_ANCHOR_BLOCK
 from ..engine.soundbank import region_tail_guard
+from . import launch_tally
 
 SOUND_BLOCK = 512     # window anchor granularity (samples)
 R_MAX = 4.0           # max pitch ratio (span per block = R_MAX * B)
@@ -180,5 +181,12 @@ _launches_lock = threading.Lock()
 
 
 def _count_launch() -> None:
+    # a call under a graph capture is counted when the graph replays
+    if not launch_tally.recorded("fetch_interp"):
+        add_launches(1)
+
+
+def add_launches(n: int) -> None:
+    """Count `n` launches: one call, or a replayed graph's recorded ones."""
     with _launches_lock:
-        fetch_interp.launches += 1
+        fetch_interp.launches += n

@@ -30,6 +30,7 @@ import threading
 import torch
 
 from ..constants import NUM_SAMPLER_CHANNELS
+from . import launch_tally
 
 
 def _stacked(contrib, init):
@@ -155,5 +156,12 @@ _launches_lock = threading.Lock()
 
 
 def _count_launch() -> None:
+    # a call under a graph capture is counted when the graph replays
+    if not launch_tally.recorded("lane_mixdown"):
+        add_launches(1)
+
+
+def add_launches(n: int) -> None:
+    """Count `n` launches: one call, or a replayed graph's recorded ones."""
     with _launches_lock:
-        lane_mixdown.launches += 1
+        lane_mixdown.launches += n

@@ -575,3 +575,46 @@ def test_mixdown_kernel_refuses_what_it_does_not_take():
         md.lane_mixdown(c, ln.long())
     with pytest.raises(ValueError):
         md.lane_mixdown(c.transpose(0, 1).contiguous().transpose(0, 1), ln)
+
+
+@pytest.mark.cuda
+def test_render_graphs_on_card_match_eager():
+    """The default engine on "cuda" with render graphs (warmed: one CUDA
+    graph a render shape, replayed a block or horizon) against the same
+    engine rendering eagerly (render_graphs "off"), V=64, B=128, through
+    adoptions and an event-block rebuild: every output bit-equal; every
+    render a replay; each replay counted its kernels' launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    V, B = 64, 128
+    on = AudioEngine("cuda", block_frames=B, num_voices=V)
+    off = AudioEngine("cuda", block_frames=B, num_voices=V,
+                      render_graphs="off")
+    for e in (on, off):
+        chip_smoke.build_session(e, num_voices=V, num_clips=8)
+        e.warmup()
+    assert on.stats()["graphs"] == on.warmed_graphs > 0
+    before = (fw.fetch_interp.launches, md.lane_mixdown.launches)
+    for b in range(48):
+        if b == 40:
+            for e in (on, off):
+                chip_smoke.note_off(e, 3)
+        got, want = on.process_block().outputs, off.process_block().outputs
+        for name, a, w in zip(got._fields, got, want):
+            assert torch.equal(a, w), f"block {b} {name}"
+    for e in (on, off):
+        e.drain_speculation()
+    torch.cuda.synchronize()
+    stats = on.stats()
+    assert stats["spec_failures"] == 0, stats["spec_last_failure"]
+    assert stats["render_graphs"] == "graphs"
+    assert stats["graph_replays"] == sum(on.render_dispatches.values())
+    assert stats["late_captures"] == 0
+    assert fw.fetch_interp.launches - before[0] == \
+        on.fetch_dispatches["windows"] + off.fetch_dispatches["windows"]
+    assert md.lane_mixdown.launches - before[1] == \
+        sum(on.render_dispatches.values()) + \
+        sum(off.render_dispatches.values())
