@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
                           [--soak-seconds S] [--soak-event-seconds S]
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
+    python3 chip_smoke.py --mesh-only         # phases 1, 2, 13
     python3 chip_smoke.py --mixdown-only      # phases 1, 2, the mixdown's 3, 5
     python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
 
@@ -90,17 +91,21 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    LIBZL_TPU_STRETCH=torch, waiting for the deferred re-render; ms of the
    card vocoder beside the native WSOLA and the numpy vocoder on that clip;
 13. mesh        — the north-star session through AudioEngine("cuda:0",
-   mesh=make_mesh(devices=["cuda:0"] * k)) for k = 2 and 4, at B=1024 and
-   B=128, per-block (lookahead=0) and with the default options, every block
-   against the unsharded "cuda" engine of the same options: master,
-   lane_mix, lane_peaks, lane_rms and voice_peaks bit-equal (the carried
-   in-order lane mixdown); the windows kernel's launches must equal the
-   unsharded engine's windows blocks plus k x each mesh engine's, the
-   mixdown kernel's k x each engine's renders; each shard's fetch call (V/k
-   voices) bit-equal to the plain version; realtime factor, process_block
-   ms, device ms and kernels a block per k; across every card where there
-   are two or more (per-block at B=1024 and default at B=128, the same
-   checks, each card's fetch held to its plain version on that card);
+   mesh=make_mesh(devices=["cuda:0"] * k)) for k = 2 and 4, each with
+   render graphs (the default: one graph a render) and with render_graphs
+   "off", at B=1024 and B=128, per-block (lookahead=0) and with the default
+   options, every block against the unsharded "cuda" engine of the same
+   options: master, lane_mix, lane_peaks, lane_rms and voice_peaks
+   bit-equal (the carried in-order lane mixdown); the windows kernel's
+   launches must equal the unsharded engine's windows blocks plus k x each
+   mesh engine's, the mixdown kernel's k x each engine's renders, every
+   render of a graph engine a replay, a late capture or a stale render;
+   each shard's fetch and mixdown call (V/k voices) bit-equal to the plain
+   version; realtime factor, process_block ms, device ms and kernels a
+   block, warmup and capture seconds and graph memory per k and path;
+   across every card where there are two or more (per-block at B=1024 and
+   default at B=128, a chain of per-card graphs and eager, the same checks,
+   each card's calls held to the plain versions on that card);
 14. soak        — the C ABI bridge on "cuda" with its wall-clock pump, 1024
    voices, B=128, a file sink: four sine WAVs by clip_new, played looped,
    global playback recorded to a file, a random clip retriggered every
@@ -255,7 +260,7 @@ def reset_counts(engines) -> None:
 def check_launches(launches: dict, windows: int, engines, label: str):
     """The fetch kernel launched once a windows block (x shards: `windows`
     counts them), the mixdown once a shard a render; every render of a
-    one-shard engine a graph replay or a capture (check_graph_renders)."""
+    graph engine a graph replay or a capture (check_graph_renders)."""
     check(launches["fetch_interp"] == windows,
           f"{label}: fetch kernel launched {launches['fetch_interp']} times "
           f"for {windows} windows blocks")
@@ -268,12 +273,12 @@ def check_launches(launches: dict, windows: int, engines, label: str):
 
 
 def check_graph_renders(engine, label: str) -> None:
-    """A one-shard engine with render graphs replayed a captured graph for
-    every render since its counts were zeroed, or captured one then (late
-    captures; stale renders: the bank grew under a queued render). A mesh
-    of k > 1 renders eagerly."""
+    """An engine with render graphs, on one shard or a mesh of k, replayed
+    its captured graphs for every render since its counts were zeroed, or
+    captured them then (late captures; stale renders: the bank grew under
+    a queued render). render_graphs "off" renders eagerly."""
     stats = engine.stats()
-    if engine.mesh.size > 1 or engine.render_graphs == "off":
+    if engine.render_graphs == "off":
         check(stats["render_graphs"] == "eager",
               f"{label}: {stats['render_graphs']} renders")
         return
@@ -1935,22 +1940,34 @@ def phase_stretch(device, card: str) -> dict:
 MESH_SHARDS = (2, 4)
 # (B, blocks): B=128 covers a horizon build and an adoption at H=16
 MESH_RUNS = ((SUPER_BLOCK, 12), (LIVE_BLOCK, 40))
+# each mesh engine with render graphs (the default) and eagerly
+MESH_MODES = ("auto", "off")
 
 
-def mesh_engines(device, B: int, opts: dict, meshes: dict) -> dict:
-    """{k: engine} with the session built and warmed: k=1 the unsharded
-    engine on `device`, else an engine on meshes[k]."""
+def mesh_label(k: int, mode: str) -> str:
+    return f"k={k}" + (" eager" if mode == "off" else "")
+
+
+def mesh_engines(device, B: int, opts: dict, meshes: dict) -> tuple:
+    """({label: engine}, {label: warmup record}) with the session built and
+    warmed: "k=1" the unsharded engine on `device` (graphs), then for each
+    k of `meshes` ({k: mesh}) an engine with render graphs and one with
+    render_graphs "off" (mesh_label)."""
     from libzl_tpu_torch.engine.engine import AudioEngine
 
-    out = {}
-    for k, mesh in meshes.items():
+    engines, warm = {}, {}
+    plan = [(1, None, "auto")] + [(k, m, mode) for k, m in meshes.items()
+                                  for mode in MESH_MODES]
+    for k, mesh, mode in plan:
         dev = device if mesh is None else mesh.devices[0]
         e = AudioEngine(dev, sample_rate=SAMPLE_RATE, block_frames=B,
-                        num_voices=NUM_VOICES, mesh=mesh, **opts)
+                        num_voices=NUM_VOICES, mesh=mesh, render_graphs=mode,
+                        **opts)
         build_session(e)
-        e.warmup()
-        out[k] = e
-    return out
+        label = mesh_label(k, mode)
+        warm[label] = measured_warmup(e)
+        engines[label] = e
+    return engines, warm
 
 
 MESH_FIELDS = ("master", "lane_mix", "lane_peaks", "lane_rms", "voice_peaks")
@@ -1975,13 +1992,15 @@ def _check_equal(got, want, label: str, worst: dict) -> None:
 
 def drive_mesh(engines: dict, n: int, label: str) -> dict:
     """Drive every engine `n` blocks in lockstep, each mesh engine held to
-    the unsharded one (engines[1]) every block: bit-equal."""
+    the unsharded one (the first) every block: bit-equal. {label: the
+    max error of each field}."""
     worst = {}
+    first = next(iter(engines))
     for i in range(n):
         outs = {k: e.process_block().outputs for k, e in engines.items()}
         for k, o in outs.items():
-            if k != 1:
-                _check_equal(o, outs[1], f"{label} k={k} block {i}",
+            if k != first:
+                _check_equal(o, outs[first], f"{label} {k} block {i}",
                              worst.setdefault(k, {}))
     for e in engines.values():
         e.drain_speculation()
@@ -1991,28 +2010,30 @@ def drive_mesh(engines: dict, n: int, label: str) -> dict:
 def _mesh_launches(engines: dict, label: str) -> dict:
     """The kernels' launches of a drive_mesh run, held to the engines'
     dispatches: the fetch k x each engine's windows blocks, the mixdown k x
-    each engine's renders."""
+    each engine's renders; every render of a graph engine a replay, a late
+    capture or a stale render."""
     launches = read_launches()
     check(sum(e.fetch_dispatches["gather"] for e in engines.values()) == 0,
           f"{label}: a block fell back to the gather fetch")
-    check_launches(launches, sum(k * e.fetch_dispatches["windows"]
-                                 for k, e in engines.items()),
+    check_launches(launches, sum(e.mesh.size * e.fetch_dispatches["windows"]
+                                 for e in engines.values()),
                    engines.values(), label)
     for k, e in engines.items():
         check(e.stats()["spec_failures"] == 0,
-              f"{label} k={k}: speculative build failed: "
+              f"{label} {k}: speculative build failed: "
               f"{e.stats()['spec_last_failure']}")
     return launches
 
 
 def check_shard_kernels(engine, k: int) -> int:
     """Each shard's windows fetch and lane mixdown (from the mix carried
-    from the shard before) of one more block against the plain versions:
-    bit-equal. Returns the per-shard voice count."""
+    from the shard before) of one more block, rendered eagerly, against the
+    plain versions: bit-equal. Returns the per-shard voice count."""
     from libzl_tpu_torch.ops import fetch_windows as fw
     from libzl_tpu_torch.ops import mixdown as md
 
-    calls = bench.capture_calls(engine.process_block)
+    with eager_renders(engine):
+        calls = bench.capture_calls(engine.process_block)
     torch.cuda.synchronize()
     check(len(calls["fetch"]) == k and len(calls["mixdown"]) == k,
           f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
@@ -2028,19 +2049,41 @@ def check_shard_kernels(engine, k: int) -> int:
     return int(calls["fetch"][0][0][1].shape[0])
 
 
+def _mesh_report(engines: dict, warm: dict, timing: dict) -> str:
+    """One line: each engine's realtime factor, process_block p50, device
+    profile (where taken), render path and warmup (capture s, graph
+    MiB)."""
+    rows = []
+    for label, e in engines.items():
+        t, w = timing[label], warm[label]
+        stats = e.stats()
+        rows.append(
+            f"{label} realtime {t['rt']:.3f}x, process_block p50 "
+            f"{t['ms_p50']:.4f} ms"
+            + (f", device {t['device_ms']:.4f} ms and {t['kernels']:.1f} "
+               f"kernels a block, mixdown {100 * t['mixdown_share']:.2f}% "
+               f"of device" if "device_ms" in t else "")
+            + f", {stats['render_graphs']}"
+            + (f" ({stats['graphs']} graphs of {stats['graph_segments']} "
+               f"segment(s), warmup {w['warmup_s']:.3f} s, capture "
+               f"{w['capture_s']:.3f} s, {w['graph_bytes'] / 2**20:.1f} MiB"
+               f")" if stats["render_graphs"] == "graphs" else
+               f" (warmup {w['warmup_s']:.3f} s)"))
+    return "; ".join(rows)
+
+
 def phase_mesh(device, card: str) -> tuple:
     from libzl_tpu_torch.parallel.sharding import canonical_device, make_mesh
 
     first = canonical_device(device)
-    meshes = {1: None}
-    meshes.update({k: make_mesh(devices=[first] * k) for k in MESH_SHARDS})
+    meshes = {k: make_mesh(devices=[first] * k) for k in MESH_SHARDS}
     total, timing = {}, {}
     for mode, opts in (("per-block", dict(lookahead=0)), ("default", {})):
         for B, n in MESH_RUNS:
             t0 = time.perf_counter()
-            engines = mesh_engines(first, B, opts, meshes)
+            engines, warm = mesh_engines(first, B, opts, meshes)
             for k, e in engines.items():
-                check(e.fetch == "windows", f"k={k}: fetch {e.fetch}")
+                check(e.fetch == "windows", f"{k}: fetch {e.fetch}")
             reset_counts(engines.values())
             torch.cuda.synchronize()
             reset_launches()
@@ -2052,33 +2095,32 @@ def phase_mesh(device, card: str) -> tuple:
             rendered = {k: sum(e.render_dispatches.values())
                         for k, e in engines.items()}
             total = add_launches(total, launches)
-            shard_v = {k: check_shard_kernels(engines[k], k)
-                       for k in MESH_SHARDS if not engines[k]._lookahead}
-            for k, e in engines.items():
-                timing[(mode, B, k)] = time_mesh(e, 20 if B == SUPER_BLOCK
-                                                 else 96)
+            shard_v = {k: check_shard_kernels(engines[label], k)
+                       for k in MESH_SHARDS
+                       for label in [mesh_label(k, "off")]
+                       if not engines[label]._lookahead}
+            runs = {}
+            for label, e in engines.items():
+                runs[label] = time_mesh(e, 20 if B == SUPER_BLOCK else 96)
                 if not e._lookahead:
-                    timing[(mode, B, k)].update(_device_profile(e, 10))
-            print(f"mesh {mode} B={B} H={engines[1]._lookahead}: {n} blocks; "
-                  + "; ".join(f"k={k} max err " + ", ".join(
-                      f"{a} {v:.3e}" for a, v in worst[k].items())
-                      for k in MESH_SHARDS)
+                    runs[label].update(_device_profile(e, 10))
+                runs[label].update(
+                    {f"warmup_{k}": v for k, v in warm[label].items()})
+                timing[f"{mode}_{B}_{label}"] = runs[label]
+            print(f"mesh {mode} B={B} H={engines['k=1']._lookahead}: {n} "
+                  f"blocks; "
+                  + "; ".join(f"{k} max err " + ", ".join(
+                      f"{a} {v:.3e}" for a, v in w.items())
+                      for k, w in worst.items())
                   + f"; windows blocks {windows}, renders {rendered}"
                   f", kernel launches {json.dumps(launches)} (= sum of k x "
-                  f"blocks, k x renders)"
+                  f"blocks, k x renders; graph engines: every render a "
+                  f"replay, late capture or stale render)"
                   + (f"; shard fetches and mixdowns bit-equal to plain at V="
                      f"{sorted(shard_v.values())}" if shard_v else "")
                   + f" ({time.perf_counter() - t0:.1f} s)")
             print(f"[{card}] mesh {mode} B={B}: "
-                  + "; ".join(f"k={k} realtime {t['rt']:.3f}x, process_block "
-                              f"p50 {t['ms_p50']:.4f} ms"
-                              + (f", device {t['device_ms']:.4f} ms and "
-                                 f"{t['kernels']:.1f} kernels a block, "
-                                 f"mixdown "
-                                 f"{100 * t['mixdown_share']:.2f}% of device"
-                                 if "device_ms" in t else "")
-                              for k in engines
-                              for t in [timing[(mode, B, k)]])
+                  + _mesh_report(engines, warm, runs)
                   + " (chained blocks, one sync at the end; device from "
                   "torch.profiler over 10 more)")
             del engines
@@ -2087,7 +2129,8 @@ def phase_mesh(device, card: str) -> tuple:
     else:
         print("mesh across cards: NOT RUN: one card")
     torch.cuda.synchronize()
-    return total, {f"{m}_{b}_k{k}": v for (m, b, k), v in timing.items()}
+    return total, {k.replace(" ", "_").replace("=", ""): v
+                   for k, v in timing.items()}
 
 
 def sync_cards() -> None:
@@ -2097,12 +2140,13 @@ def sync_cards() -> None:
 
 def phase_mesh_cards(card: str) -> dict:
     """Phase 13 across every visible card (make_mesh(), two or more): the
-    session per-block at B=1024 and with the default options at B=128, each
-    block bit-equal to the unsharded engine on the first card; launches
-    equal to shards x windows blocks and shards x renders; each card's fetch
-    and mixdown call bit-equal to the plain version on that card; realtime
-    factor and process_block ms per engine. Returns the kernels'
-    launches."""
+    session per-block at B=1024 and with the default options at B=128,
+    through the chain of per-card render graphs and eagerly, each block
+    bit-equal to the unsharded engine on the first card; launches equal
+    to shards x windows blocks and shards x renders, every render of the
+    graph engine a replay; each card's fetch and mixdown call bit-equal to
+    the plain version on that card; realtime factor, process_block ms and
+    warmup per engine. Returns the kernels' launches."""
     from libzl_tpu_torch.parallel.sharding import make_mesh
 
     cards = make_mesh()
@@ -2112,7 +2156,7 @@ def phase_mesh_cards(card: str) -> dict:
     for mode, opts, B, n in (("per-block", dict(lookahead=0), SUPER_BLOCK, 8),
                              ("default", {}, LIVE_BLOCK, 40)):
         t0 = time.perf_counter()
-        engines = mesh_engines(cards.devices[0], B, opts, {1: None, k: cards})
+        engines, warm = mesh_engines(cards.devices[0], B, opts, {k: cards})
         reset_counts(engines.values())
         sync_cards()
         reset_launches()
@@ -2123,23 +2167,24 @@ def phase_mesh_cards(card: str) -> dict:
         windows = {kk: e.fetch_dispatches["windows"]
                    for kk, e in engines.items()}
         total = add_launches(total, launches)
-        shard_v = (check_shard_kernels(engines[k], k)
-                   if not engines[k]._lookahead else None)
+        eager = engines[mesh_label(k, "off")]
+        shard_v = (check_shard_kernels(eager, k) if not eager._lookahead
+                   else None)
         timing = {kk: time_mesh(e, 20 if B == SUPER_BLOCK else 96)
                   for kk, e in engines.items()}
         sync_cards()
         print(f"mesh across {k} cards ({', '.join(map(str, cards.devices))})"
-              f" {mode} B={B} H={engines[1]._lookahead}: {n} blocks; max err "
-              + ", ".join(f"{a} {v:.3e}" for a, v in worst[k].items())
+              f" {mode} B={B} H={engines['k=1']._lookahead}: {n} blocks; "
+              + "; ".join(f"{kk} max err " + ", ".join(
+                  f"{a} {v:.3e}" for a, v in w.items())
+                  for kk, w in worst.items())
               + f"; windows blocks {windows}, kernel launches "
               f"{json.dumps(launches)} (= sum of k x blocks, k x renders)"
               + (f"; each card's fetch and mixdown bit-equal to plain at "
                  f"V={shard_v}" if shard_v else "")
               + f" ({time.perf_counter() - t0:.1f} s)")
         print(f"[{card}] mesh across {k} cards {mode} B={B}: "
-              + "; ".join(f"k={kk} realtime {t['rt']:.3f}x, process_block "
-                          f"p50 {t['ms_p50']:.4f} ms"
-                          for kk, t in timing.items())
+              + _mesh_report(engines, warm, timing)
               + " (chained blocks, one sync at the end)")
         del engines
     return total
@@ -2353,6 +2398,10 @@ def main() -> int:
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="run phases 1 and 2, then only phase 13 across "
                          "every visible card (needs two or more)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 13 (meshes "
+                         "on the first card, and across cards where there "
+                         "are two or more)")
     ap.add_argument("--soak-seconds", type=float, default=20.0,
                     help="length of phase 14's pump soak")
     ap.add_argument("--soak-event-seconds", type=float, default=5.0,
@@ -2378,6 +2427,14 @@ def main() -> int:
         print(card)
         print(json.dumps({"mesh_cards_launches": launches,
                           "count": torch.cuda.device_count()}))
+        return 0
+    if opts.mesh_only:
+        with _phase("13 mesh"):
+            launches, mesh_timing = phase_mesh(device, card)
+        print(f"mesh timing: {json.dumps(mesh_timing)}")
+        print(f"mesh launches: {json.dumps(launches)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
         return 0
     if opts.graphs_only:
         with _phase("16 graphs"):

@@ -34,7 +34,8 @@ the first card; there is no "cuda if available" picker) and reports:
   1024-voice pool with voice buckets at B=128
   (`rt_liveblock_96on1024_bucketed`);
 - the superblock realtime of the per-block engine on a mesh of k shards of
-  the one device (`rt_superblock_mesh_k2`, `_k4`);
+  the one device, warmed, replaying its render graphs (one CUDA graph a
+  render, as on one shard) (`rt_superblock_mesh_k2`, `_k4`);
 - the C ABI's wall-clock pump at B=128 with a null sink: blocks rendered
   over block periods of wall time (`pump_realtime_share`; 1.0 is realtime).
 
@@ -613,8 +614,9 @@ def measure_sparse_session(run: Run, blocks: int = 200) -> float:
 
 def measure_mesh_realtime(run: Run, shards: int, blocks: int = 40) -> float:
     """The per-block engine's superblock realtime factor on a mesh of
-    `shards` shards of the run's one device (the voices split, each shard's
-    kernels launched in turn; bit-equal to the unsharded engine)."""
+    `shards` shards of the run's one device (the voices split, every
+    shard's kernels in one render graph a render, captured by warmup() and
+    replayed a block; bit-equal to the unsharded engine)."""
     from .parallel.sharding import canonical_device, make_mesh
 
     first = canonical_device(run.device)

@@ -33,10 +33,11 @@ pool voice order (ops/mixdown.py), so a mesh gives the unsharded engine's
 bits; the outputs land on the first device, which is the engine's. Without
 a mesh the engine's one device is the mesh: one shard, the same dispatch.
 `render_dispatches` counts the per-block and horizon renders (each launches
-the lane mixdown once a shard). Each render of a one-device engine replays a
-CUDA graph captured for its (kind, bucket, rung) by warmup() or when first
-met (engine/graphs.py, the reference's compile-once jit executables);
-`render_graphs="off"` and meshes of k > 1 enqueue every kernel eagerly.
+the lane mixdown once a shard). Each render replays the CUDA graphs captured
+for its (kind, bucket, rung) by warmup() or when first met (engine/graphs.py,
+the reference's compile-once jit executables): one graph on one card, k
+shards of it included, a chain of per-card graphs across cards.
+`render_graphs="off"` enqueues every kernel eagerly.
 
 Two of the reference's faults are not carried over: the speculation depth
 (LIBZL_TPU_SPEC_DEPTH) is parsed at engine construction and a bad value
@@ -343,13 +344,14 @@ class AudioEngine:
         # Render graphs (engine/graphs.py), the reference's compile-once
         # executables: "auto" captures each (kind, bucket, rung) render in a
         # CUDA graph (its plain version on the CPU) and replays it, one
-        # launch a block or horizon; "off" dispatches every render eagerly,
-        # for comparing the two. A mesh of k > 1 stays eager: its
-        # cross-device carry is not one graph.
+        # launch a block or horizon, on a mesh too (one graph a render on
+        # one card, a chain of per-card graphs across cards: the plan is
+        # sharding.segments); "off" dispatches every render eagerly, for
+        # comparing the two.
         self.render_graphs = render_graphs
-        self._graphs = (graphs_mod.RenderGraphs(self.device)
-                        if render_graphs == "auto" and mesh.size == 1
-                        else None)
+        self._graphs = (graphs_mod.RenderGraphs(mesh.devices[0],
+                                                sharding.segments(mesh))
+                        if render_graphs == "auto" else None)
         self.sample_rate = sample_rate
         self.block_frames = block_frames
         self.quirk_gain = quirk_gain
@@ -920,29 +922,18 @@ class AudioEngine:
 
     def _render_fn(self, kind: str, fetch: str, rmax: float, sound, strips,
                    cols: int):
-        """The render of one (kind, fetch, rung) as a function of the
-        program (a host array, or the device tensor a graph captures), on
-        `sound` and `strips`: the eager dispatch, and what a graph
-        records."""
-        mesh, B, V = self.mesh, self.block_frames, self.pool.num_voices
-        quirk = self.quirk_gain
-        if kind == "block":
-            def fn(prog):
-                return sharding.render_block_sharded(
-                    mesh, sound, prog, strips, block_frames=B,
-                    quirk_gain=quirk, fetch=fetch, max_pitch_ratio=rmax,
-                    pad_voices_to=V)
-            return fn
-        H = self._lookahead
-        # the base program's columns: the rest are the compact dynamics
-        base = cols - (1 + (H - 1) * horizon_dyn_cols(self.pool.n_bq_extra))
-
-        def fn(prog):
-            return sharding.render_horizon_sharded(
-                mesh, sound, prog, strips, block_frames=B, slices=H,
-                base_cols=base, quirk_gain=quirk, fetch=fetch,
-                max_pitch_ratio=rmax, pad_voices_to=V)
-        return fn
+        """The render of one (kind, fetch, rung) on `sound` and `strips`, a
+        sharding.ShardedRender: called on the program (a host array, or the
+        device tensor a graph captures) it is the eager dispatch; its steps
+        are what the graphs record."""
+        H = self._lookahead if kind == "horizon" else 0
+        # a horizon's base program columns: the rest are the compact
+        # dynamics
+        base = (cols - (1 + (H - 1) * horizon_dyn_cols(self.pool.n_bq_extra))
+                if H else 0)
+        return sharding.ShardedRender(
+            self.mesh, sound, strips, self.block_frames, self.quirk_gain,
+            fetch, rmax, self.pool.num_voices, H, base)
 
     def _graph_key(self, kind: str, n: int, fetch: str, rmax: float,
                    sound) -> graphs_mod.GraphKey:
@@ -957,10 +948,10 @@ class AudioEngine:
     def _render(self, kind: str, fetch: str, rmax: float, prog, sound,
                 strips, late: bool = True):
         """One render of `prog` (a block's fused program, or a horizon's
-        one buffer, int32 on the host): a replay of its graph, captured the
-        first time it is met (counted in `late_captures` unless `late` is
-        False), or, with render_graphs "off" or a mesh of k > 1, the eager
-        dispatch. A RenderOutputs, or a tuple of H for a horizon."""
+        one buffer, int32 on the host): a replay of its graphs, captured
+        the first time it is met (counted in `late_captures` unless `late`
+        is False), or, with render_graphs "off", the eager dispatch. A
+        RenderOutputs, or a tuple of H for a horizon."""
         fn = self._render_fn(kind, fetch, rmax, sound, strips, prog.shape[1])
         if self._graphs is None:
             return fn(prog)
@@ -1464,10 +1455,9 @@ class AudioEngine:
         per-block renders (top rung only in a lookahead engine), horizons at
         each bucket's allowed rungs, and the full-pool gather fallback of a
         windows engine. A graph already captured is replayed instead; with
-        render_graphs "off", or a mesh of k > 1, each item renders once. A
-        lookahead engine also starts both spec workers and renders the last
-        item on the dispatch thread, so that thread's CUDA context exists
-        before the session. Ends in one real device->host transfer. Returns
+        render_graphs "off" each item renders once. A lookahead engine also
+        starts both spec workers and renders the last item on the dispatch
+        thread, so that thread's CUDA context exists before the session. Ends in one real device->host transfer. Returns
         the number of items (also `warmed_graphs`, in stats(): with graphs,
         each is one graph held)."""
         if self.device.type == "cuda":
@@ -1569,9 +1559,12 @@ class AudioEngine:
             "blocks": self.total_blocks,
             "warmed_graphs": self.warmed_graphs,
             # "graphs": renders replay captured graphs; "eager": every
-            # render enqueues its kernels (render_graphs "off", or a mesh)
+            # render enqueues its kernels (render_graphs "off")
             "render_graphs": "eager" if g is None else "graphs",
             "graphs": 0 if g is None else len(g),
+            # the graphs a key chains: 1 on one device, one a card across
+            # cards (sharding.segments)
+            "graph_segments": 0 if g is None else len(g.plan),
             "graph_replays": 0 if g is None else g.replays,
             "late_captures": late_captures,
             "graph_recaptures": 0 if g is None else g.recaptures,

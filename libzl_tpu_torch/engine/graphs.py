@@ -1,12 +1,13 @@
-"""Compile-once render graphs: one CUDA graph a render shape, replayed a block.
+"""Compile-once render graphs: CUDA graphs a render shape, replayed a block.
 
 The counterpart of the reference's jit cache. There `render_block_fused` and
 `render_horizon_onebuf` are `jax.jit` functions (libzl_tpu/engine/render.py),
-`AudioEngine.warmup` compiles every (bucket, rung, kind) executable a session
-can dispatch, and `_dispatch_packed` issues one executable a block. The
-port's eager render enqueues ~260 small kernels a block (~285 a horizon
-slice); here each render shape is captured once in a `torch.cuda.CUDAGraph`
-and replayed, one launch a block or horizon.
+the mesh's `make_shardmap_packed_render` / `make_shardmap_horizon_render`
+too (libzl_tpu/parallel/sharding.py), `AudioEngine.warmup` compiles every
+(bucket, rung, kind) executable a session can dispatch, and
+`_dispatch_packed` issues one executable a block. The port's eager render
+enqueues ~260 small kernels a block and shard (~285 a horizon slice); here
+each render shape is captured once and replayed.
 
     host program [n, C] int32 ─> pinned staging slot ─copy_─> static program
                                                               │ replay()
@@ -19,27 +20,43 @@ and replayed, one launch a block or horizon.
   bank's shape, dtype and layout. A graph reads the bank, the strips and its
   program where they lay at capture: the engine keeps all three in place
   (`copy_`), and re-binds the graphs when the bank has to grow (`rebind`).
-- Capture: a real render of the program on a side stream first (PyTorch's
-  CUDA-graph notes: warm up on a side stream), whose outputs are that
-  block's; then the capture of the same render, its outputs packed into one
-  flat buffer, in the key's own memory pool and in "thread_local" error mode
-  (the speculative dispatch thread may launch meanwhile). A capture that
-  fails raises; nothing falls back to the eager render.
-- Replay, under the key's lock: the program into a pinned staging slot
-  (two, each reused only after its last copy finished), one non-blocking
-  copy into the static program, `replay()`, one `clone()` of the flat
-  outputs, views of it. Outputs are clones, so a bounce drain holding 32
-  blocks' outputs, or a horizon emitted while the next renders, stays
-  intact. A replay runs exactly the kernels the eager render runs, on the
-  same inputs: its bits are the eager render's.
+- The segment plan (`parallel/sharding.segments(mesh)`): the mesh's runs of
+  shards on one device. One segment (one device, the CPU, or k shards of
+  one card) is one graph a key: the whole render, every shard's rows views
+  of the one static program. Several segments (cards) are a chain a key,
+  because a `torch.cuda.CUDAGraph` records one device's stream: each
+  segment's rows staged through its own pinned slots into its card's static
+  program, a *contrib* graph and a *fold* graph on that card (the steps of
+  `sharding.ShardedRender`, the fold reading a static `init`), and a *tail*
+  graph on the first card reading a static mix and static peaks. A replay
+  replays every contrib graph (the cards render in parallel), then in mesh
+  order copies the previous segment's mix into the static `init` and
+  replays the fold (a cross-device `copy_` orders itself after both cards'
+  current streams), then copies the last mix and the peaks into the tail's
+  inputs and replays the tail. The same kernels run in the same order as
+  the eager chain: its bits.
+- Capture: a real render of the program first (PyTorch's CUDA-graph notes:
+  warm up; a side stream for one graph, the cards' current streams for a
+  chain), whose outputs are that block's; then the capture of the same
+  render, its outputs packed into one flat buffer, each graph on its
+  card's side stream, in its own memory pool and in "thread_local" error
+  mode (the speculative dispatch thread may launch meanwhile). A capture
+  that fails raises; nothing falls back to the eager render.
+- Replay, under the key's lock: each segment's rows into a pinned staging
+  slot (two, each reused only after its last copy finished), one
+  non-blocking copy into the static program, the replays, one `clone()`
+  of the flat outputs, views of it. Outputs are clones, so a bounce drain
+  holding 32 blocks' outputs, or a horizon emitted while the next renders,
+  stays intact.
 - Launch counts: a kernel wrapper called under capture tallies its launch
   (ops/launch_tally.py) instead of counting it, and every replay adds the
-  capture's tally, so `fetch_interp.launches` and `lane_mixdown.launches`
-  still count the kernels that ran.
-- On the CPU the same keys, static buffers, staging, clone and views run
-  with `_PlainGraph`, the graph's plain version: its replay re-runs the
-  recorded render on the static buffers. There the capture's one render is
-  the block's output and counts its launches (none: the plain versions).
+  key's tally (every segment's), so `fetch_interp.launches` and
+  `lane_mixdown.launches` still count the kernels that ran: k a render.
+- On the CPU the same keys, segments, static buffers, staging, copies,
+  clone and views run with `_PlainGraph`, a graph's plain version: its
+  replay re-runs the recorded step on the static buffers. There one
+  segment's capture is the block's output and counts its launches (none:
+  the plain versions); a chain's is a warm-up render and its steps.
 """
 
 from __future__ import annotations
@@ -100,35 +117,87 @@ def _layout(outs) -> list:
     return [(tuple(t.shape), t.numel()) for t in tensors]
 
 
+def _on(device: torch.device):
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class _PlainGraph:
-    """The graph's plain version (the CPU): replay re-runs the recorded
-    render on the static program and packs it into the flat outputs. Its
+    """A graph's plain version (the CPU): replay re-runs the recorded step
+    on its static inputs and writes what it returns into the step's static
+    outputs, as a CUDA graph's replay rewrites the memory it captured. Its
     launches count as a CUDA replay's do: the capture's tally, once."""
 
-    def __init__(self, fn, prog, flat):
-        self._fn, self._prog, self._flat = fn, prog, flat
+    def __init__(self, step, outs: list):
+        self._step, self._outs = step, outs
 
     def replay(self) -> None:
         with launch_tally.recording():
-            _pack(self._fn(self._prog), self._flat)
+            for out, t in zip(self._outs, self._step()):
+                out.copy_(t)
 
 
-class _Entry:
-    """One captured render shape and its static buffers."""
+class _Segment:
+    """One segment's rows of a key's program: pinned staging slots, the
+    static program on the segment's device, and a chain's graphs there."""
 
-    def __init__(self, key: GraphKey, shape: tuple, device: torch.device):
+    def __init__(self, device: torch.device, rows: slice, cols: int):
         cuda = device.type == "cuda"
-        self.key = key
-        self.lock = threading.Lock()
+        shape = (rows.stop - rows.start, cols)
+        self.device = device
+        self.rows = rows
         self.staging = [torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
                         for _ in range(2)]
         # the copy that last read each staging slot
         self.copied = [torch.cuda.Event() if cuda else None for _ in range(2)]
         self.slot = 0
         self.prog = torch.empty(shape, dtype=torch.int32, device=device)
-        # the last replay's clone, on whatever stream it ran
+        # the last replay's end on this device, on whatever stream it ran
         self.done = torch.cuda.Event() if cuda else None
-        self.graph = None
+        # a chain's: the contrib graph and its outputs (each shard's
+        # contributions and lanes, the segment's peaks), the fold graph,
+        # its static init (None for the first segment) and its mix
+        self.contrib = self.parts = self.peaks = None
+        self.fold = self.init = self.mix = None
+
+    def stage(self, prog: np.ndarray) -> None:
+        """The segment's rows of the host program into a staging slot, then
+        into the static program (non-blocking from pinned memory on CUDA),
+        on the device's current stream after the last replay's end."""
+        if self.done is not None:
+            torch.cuda.current_stream().wait_event(self.done)
+        self.slot ^= 1
+        event = self.copied[self.slot]
+        if event is not None:
+            event.synchronize()
+        np.copyto(self.staging[self.slot].numpy(), prog[self.rows])
+        self.prog.copy_(self.staging[self.slot],
+                        non_blocking=event is not None)
+        if event is not None:
+            event.record()
+
+    def statics(self) -> list:
+        return [self.prog, self.init, *self.staging]
+
+
+class _Entry:
+    """One captured render shape: its segments and static buffers."""
+
+    def __init__(self, key: GraphKey, shape: tuple, plan: list):
+        self.key = key
+        self.lock = threading.Lock()
+        self.shape = tuple(shape)
+        s = shape[0] // sum(n for _, _, n in plan)
+        self.segments = [_Segment(dev, slice(a * s, (a + n) * s), shape[1])
+                         for dev, a, n in plan]
+        self.graph = None        # one segment's render; a chain's tail
+        self.mix_in = None       # a chain's tail inputs
+        self.peaks_in = None
         self.flat = None
         self.layout = None
         self.launches = {}
@@ -136,36 +205,39 @@ class _Entry:
         self.dead = False
 
     def stage(self, prog: np.ndarray) -> None:
-        """The host program into a staging slot, then into the static
-        program (non-blocking from pinned memory on CUDA)."""
-        if tuple(prog.shape) != tuple(self.prog.shape):
+        if tuple(prog.shape) != self.shape:
             raise ValueError(f"program {tuple(prog.shape)} for a graph of "
-                             f"{tuple(self.prog.shape)}")
-        self.slot ^= 1
-        event = self.copied[self.slot]
-        if event is not None:
-            event.synchronize()
-        np.copyto(self.staging[self.slot].numpy(), prog)
-        self.prog.copy_(self.staging[self.slot],
-                        non_blocking=event is not None)
-        if event is not None:
-            event.record()
+                             f"{self.shape}")
+        for seg in self.segments:
+            with _on(seg.device):
+                seg.stage(prog)
 
     def last_program(self) -> np.ndarray:
-        return self.staging[self.slot].numpy().copy()
+        return np.concatenate([seg.staging[seg.slot].numpy()
+                               for seg in self.segments])
 
+    def statics(self) -> list:
+        return [self.flat, self.mix_in, *(self.peaks_in or []),
+                *(t for seg in self.segments for t in seg.statics())]
 
 class RenderGraphs:
-    """The render graphs of one engine on one device (see the module's
-    docstring). `render(key, fn, prog, bound)` replays the key's graph, or
-    captures it; `rebind` re-captures every graph on new inputs."""
+    """The render graphs of one engine (see the module's docstring).
+    `segments` is the plan its renders split into (sharding.segments(mesh);
+    default one segment on `device`), `device` the first segment's, where
+    the outputs land. `render(key, fn, prog, bound)` replays the key's
+    graphs, or captures them; `rebind` re-captures every graph on new
+    inputs."""
 
-    def __init__(self, device):
+    def __init__(self, device, segments=None):
         self.device = torch.device(device)
+        self.plan = list(segments or [(self.device, 0, 1)])
+        if self.plan[0][0] != self.device:
+            raise ValueError(f"the plan starts on {self.plan[0][0]}, the "
+                             f"outputs land on {self.device}")
         self._entries: dict = {}
         self._capture_lock = threading.Lock()   # one capture at a time
         self._stats_lock = threading.Lock()
-        self._side = None
+        self._side = {}                         # device -> capture stream
         # the inputs the graphs read (the engine's bank dict): a render
         # prepared for earlier inputs is stale (see render)
         self.bound = None
@@ -182,22 +254,19 @@ class RenderGraphs:
     def keys(self) -> list:
         return list(self._entries)
 
-    def _device_ctx(self):
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
-
     def render(self, key: GraphKey, fn, prog: np.ndarray, bound,
                warm: bool = False) -> tuple:
         """The render of `prog` (host int32) at `key`: a replay of its
-        graph, or, the first time, a capture of `fn` (a function of the
-        program, host or device, returning RenderOutputs or a tuple of
-        them) whose warm-up render is returned. `bound` is the inputs `fn`
-        reads: when they are no longer the graphs' (the bank grew while
-        this render waited), the render is stale and runs once eagerly,
-        without a graph (a speculative horizon's, which the engine then
-        discards). A `warm` render (the engine's warmup) is left out
-        of `replays`. Returns (outputs, captured)."""
+        graphs, or, the first time, a capture of `fn` whose warm-up render
+        is returned. `fn(prog)` renders a program (host, or a device
+        tensor) into RenderOutputs or a tuple of them; a chained plan also
+        uses its steps (`fn.contrib`, `fn.fold`, `fn.tail`, `fn.chain`: a
+        sharding.ShardedRender). `bound` is the inputs `fn` reads: when
+        they are no longer the graphs' (the bank grew while this render
+        waited), the render is stale and runs once eagerly, without a
+        graph (a speculative horizon's, which the engine then discards). A
+        `warm` render (the engine's warmup) is left out of `replays`.
+        Returns (outputs, captured)."""
         while True:
             entry = self._entries.get(key)
             if entry is None:
@@ -207,7 +276,7 @@ class RenderGraphs:
                     if bound is not self.bound:
                         with self._stats_lock:
                             self.stale += 1
-                        with self._device_ctx():
+                        with _on(self.device):
                             return fn(prog), False
                     return self._capture(key, fn, prog), True
             with entry.lock:
@@ -216,14 +285,31 @@ class RenderGraphs:
                 return self._replay(entry, prog, warm), False
 
     def _replay(self, entry: _Entry, prog: np.ndarray, warm: bool):
-        with self._device_ctx():
-            if entry.done is not None:
-                torch.cuda.current_stream().wait_event(entry.done)
-            entry.stage(prog)
-            entry.graph.replay()
-            flat = entry.flat.clone()
-            if entry.done is not None:
-                entry.done.record()
+        entry.stage(prog)
+        segs = entry.segments
+        if entry.mix_in is None:
+            with _on(self.device):
+                entry.graph.replay()
+                flat = entry.flat.clone()
+        else:
+            for seg in segs:
+                with _on(seg.device):
+                    seg.contrib.replay()
+            for prev, seg in zip([None] + segs, segs):
+                with _on(seg.device):
+                    if prev is not None:
+                        seg.init.copy_(prev.mix)
+                    seg.fold.replay()
+            with _on(self.device):
+                entry.mix_in.copy_(segs[-1].mix)
+                for dst, seg in zip(entry.peaks_in, segs):
+                    dst.copy_(seg.peaks)
+                entry.graph.replay()
+                flat = entry.flat.clone()
+        for seg in segs:
+            if seg.done is not None:
+                with _on(seg.device):
+                    seg.done.record()
         self._count(entry)
         if not warm:
             with self._stats_lock:
@@ -239,15 +325,15 @@ class RenderGraphs:
         """Capture `fn` at `key` (the capture lock held); returns the
         outputs of the render that went with it."""
         t0 = time.perf_counter()
-        entry = _Entry(key, tuple(prog.shape), self.device)
-        with self._device_ctx():
-            entry.stage(prog)
-            if self.device.type == "cuda":
-                outs = self._capture_cuda(entry, fn)
-            else:
-                outs = self._capture_plain(entry, fn)
-        entry.bytes += sum(t.numel() * t.element_size() for t in (
-            entry.flat, entry.prog, *entry.staging))
+        entry = _Entry(key, tuple(prog.shape), self.plan)
+        entry.stage(prog)
+        if len(self.plan) > 1:
+            outs = self._capture_chain(entry, fn)
+        elif self.device.type == "cuda":
+            outs = self._capture_cuda(entry, fn)
+        else:
+            outs = self._capture_plain(entry, fn)
+        entry.bytes += _nbytes(entry.statics())
         self._entries[key] = entry
         with self._stats_lock:
             self.captures += 1
@@ -255,53 +341,119 @@ class RenderGraphs:
             self.bytes += entry.bytes
         return outs
 
+    def _record(self, entry: _Entry, device: torch.device, step) -> tuple:
+        """A graph of `step()` (a list of tensors: the graph's static
+        outputs) on `device`: a CUDA graph captured on the device's side
+        stream in its own pool, or the plain version on the CPU. Its
+        launches go into the entry's tally. Returns (graph, outputs)."""
+        if device.type != "cuda":
+            with launch_tally.recording() as tally:
+                outs = step()
+            graph = _PlainGraph(step, outs)
+        else:
+            with _on(device):
+                cur = torch.cuda.current_stream()
+                side = self._side.get(device)
+                if side is None:
+                    side = self._side[device] = torch.cuda.Stream()
+                side.wait_stream(cur)
+                reserved = torch.cuda.memory_reserved(device)
+                with torch.cuda.stream(side), \
+                        launch_tally.recording() as tally:
+                    graph = torch.cuda.CUDAGraph()
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        outs = step()
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                entry.bytes += torch.cuda.memory_reserved(device) - reserved
+                cur.wait_stream(side)
+        for name, n in tally.items():
+            entry.launches[name] = entry.launches.get(name, 0) + n
+        return graph, outs
+
     def _capture_cuda(self, entry: _Entry, fn):
-        cur = torch.cuda.current_stream()
-        if self._side is None:
-            self._side = torch.cuda.Stream()
-        side = self._side
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            # the warm-up: a real render (its launches count), this block's
-            outs = fn(entry.prog)
+        """One segment on a card: the warm-up render on the side stream,
+        then one graph of the whole render."""
+        prog = entry.segments[0].prog
+        with _on(self.device):
+            cur = torch.cuda.current_stream()
+            if self.device not in self._side:
+                self._side[self.device] = torch.cuda.Stream()
+            side = self._side[self.device]
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                # the warm-up: a real render (its launches count), this
+                # block's
+                outs = fn(prog)
+            cur.wait_stream(side)
+            for t in flatten(outs):
+                t.record_stream(cur)
             entry.layout = _layout(outs)
             entry.flat = torch.empty(sum(n for _, n in entry.layout),
                                      dtype=torch.float32, device=self.device)
-            graph = torch.cuda.CUDAGraph()
-            reserved = torch.cuda.memory_reserved(self.device)
-            with launch_tally.recording() as tally:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    _pack(fn(entry.prog), entry.flat)
-                except BaseException:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
-            entry.bytes = torch.cuda.memory_reserved(self.device) - reserved
-        cur.wait_stream(side)
-        for t in flatten(outs):
-            t.record_stream(cur)
-        entry.graph = graph
-        entry.launches = dict(tally)
+        entry.graph, _ = self._record(
+            entry, self.device, lambda: _pack(fn(prog), entry.flat) or [])
         return outs
 
     def _capture_plain(self, entry: _Entry, fn):
+        """One segment on the CPU: the plain capture's render is the
+        block's, and counts its launches."""
+        prog = entry.segments[0].prog
         with launch_tally.recording() as tally:
-            outs = fn(entry.prog)
+            outs = fn(prog)
         entry.layout = _layout(outs)
         entry.flat = torch.cat([t.reshape(-1) for t in flatten(outs)])
-        entry.graph = _PlainGraph(fn, entry.prog, entry.flat)
+        entry.graph = _PlainGraph(lambda: _pack(fn(prog), entry.flat) or [],
+                                  [])
         entry.launches = dict(tally)
         # this render is the block's: its launches ran
         self._count(entry)
         return unflatten(entry.flat.clone(), entry.layout,
                          entry.key.kind == "horizon")
 
+    def _capture_chain(self, entry: _Entry, fn):
+        """Several segments: the warm-up (the eager chain on the static
+        programs, this block's outputs, its launches counted), then each
+        segment's contrib graph, each fold graph (from a static init after
+        the first), and the tail graph on the first device."""
+        segs = entry.segments
+        outs = fn.chain(self.plan, [seg.prog for seg in segs])
+        entry.layout = _layout(outs)
+        rows = entry.shape[0]
+        for plan_seg, seg in zip(self.plan, segs):
+            def contrib(plan_seg=plan_seg, seg=seg):
+                parts, peaks = fn.contrib(plan_seg, seg.prog)
+                return [t for part in parts for t in part] + [peaks]
+            seg.contrib, got = self._record(entry, seg.device, contrib)
+            seg.parts = list(zip(got[:-1:2], got[1:-1:2]))
+            seg.peaks = got[-1]
+        prev = None
+        for plan_seg, seg in zip(self.plan, segs):
+            if prev is not None:
+                seg.init = torch.zeros_like(prev.mix, device=seg.device)
+
+            def fold(plan_seg=plan_seg, seg=seg):
+                return [fn.fold(plan_seg, seg.parts, seg.init)]
+            seg.fold, (seg.mix,) = self._record(entry, seg.device, fold)
+            prev = seg
+        entry.mix_in = torch.zeros_like(prev.mix, device=self.device)
+        entry.peaks_in = [torch.zeros_like(seg.peaks, device=self.device)
+                          for seg in segs]
+
+        entry.flat = torch.empty(sum(n for _, n in entry.layout),
+                                 dtype=torch.float32, device=self.device)
+        entry.graph, _ = self._record(entry, self.device, lambda: _pack(
+            fn.tail(entry.mix_in, entry.peaks_in, rows), entry.flat) or [])
+        return outs
+
     def rebind(self, bound, recapture=None) -> int:
         """The graphs' inputs are now `bound` (the engine's new bank):
-        every graph captured on the old ones is dropped, after the device
-        finished its replays, and captured again through `recapture(key,
+        every graph captured on the old ones is dropped, after the devices
+        finished their replays, and captured again through `recapture(key,
         program columns) -> (new key, fn)` on its last program. Returns the
         number recaptured."""
         with self._capture_lock:
@@ -310,19 +462,23 @@ class RenderGraphs:
             for entry in old:
                 with entry.lock:
                     entry.dead = True
-            if old and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in dict.fromkeys(d for d, _, _ in self.plan):
+                if old and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             self.bound = bound
             with self._stats_lock:
                 self.bytes -= sum(e.bytes for e in old)
-            for entry in old:
+            for entry in old:   # free the pools and static buffers
                 entry.graph = entry.flat = None
+                entry.mix_in = entry.peaks_in = None
+                for seg in entry.segments:
+                    seg.contrib = seg.fold = seg.parts = seg.peaks = None
+                    seg.init = seg.mix = None
             if recapture is None:
                 return 0
             for entry in old:
-                key, fn = recapture(entry.key, entry.prog.shape[1])
+                key, fn = recapture(entry.key, entry.shape[1])
                 self._capture(key, fn, entry.last_program())
             with self._stats_lock:
                 self.recaptures += len(old)
             return len(old)
-

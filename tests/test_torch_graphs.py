@@ -384,11 +384,12 @@ def test_render_graphs_option():
         "graphs"
     assert AudioEngine("cpu", num_voices=16, render_graphs="off").stats()[
         "render_graphs"] == "eager"
-    # a mesh of k > 1 stays eager: its carry crosses devices
+    # a mesh of k > 1 replays graphs too: one segment on one device
     mesh = AudioEngine("cpu", num_voices=16,
                        mesh=make_mesh(devices=["cpu"] * 2))
-    assert mesh.stats()["render_graphs"] == "eager"
-    assert mesh._graphs is None
+    assert mesh.stats()["render_graphs"] == "graphs"
+    assert mesh.stats()["graph_segments"] == 1
+    assert mesh._graphs is not None
 
 
 # ------------------------------------------------------ configurations
@@ -630,9 +631,9 @@ def test_render_graphs_env_rejects_other_values(monkeypatch):
 
 
 @pytest.mark.parametrize("k", [2, 4])
-def test_mesh_stays_eager_and_bit_equal(k):
-    """A k-shard mesh renders eagerly and stays bit-equal to the unsharded
-    engine, which replays graphs."""
+def test_mesh_replays_graphs_and_stays_bit_equal(k):
+    """A k-shard mesh replays render graphs, as the unsharded engine does,
+    and stays bit-equal to it."""
     def run(mesh):
         eng = AudioEngine("cpu", sample_rate=SR, block_frames=B,
                           num_voices=32, lookahead=4, mesh=mesh)
@@ -647,7 +648,8 @@ def test_mesh_stays_eager_and_bit_equal(k):
 
     sharded, mesh_eng = run(make_mesh(devices=["cpu"] * k))
     plain, eng = run(None)
-    assert mesh_eng.stats()["render_graphs"] == "eager"
+    assert mesh_eng.stats()["render_graphs"] == "graphs"
+    assert mesh_eng.stats()["graph_replays"] > 0
     assert eng.stats()["render_graphs"] == "graphs"
     assert eng.stats()["graph_replays"] > 0
     for field in RenderOutputs._fields:

@@ -618,3 +618,63 @@ def test_render_graphs_on_card_match_eager():
     assert md.lane_mixdown.launches - before[1] == \
         sum(on.render_dispatches.values()) + \
         sum(off.render_dispatches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["one-card", "one-card-chained",
+                                  "across-cards"])
+def test_mesh_render_graphs_on_card_match_eager(plan):
+    """A 2-shard mesh of the default engine, V=64, B=128, with render
+    graphs (one graph a render on cuda:0; the chain of per-segment graphs,
+    forced on cuda:0 or across cuda:0 and cuda:1) against the same mesh
+    rendering eagerly (render_graphs "off") and the unsharded engine,
+    through adoptions and an event-block rebuild: every output bit-equal;
+    every render of the graph mesh a replay; the kernels launched 2 x the
+    mesh engines' windows blocks and renders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if plan == "across-cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    from libzl_tpu_torch.engine.engine import AudioEngine
+    from libzl_tpu_torch.engine.graphs import RenderGraphs
+    from libzl_tpu_torch.parallel.sharding import make_mesh
+
+    V, B = 64, 128
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"] if plan == "across-cards"
+                     else ["cuda:0"] * 2)
+    on = AudioEngine("cuda:0", block_frames=B, num_voices=V, mesh=mesh)
+    if plan == "one-card-chained":
+        on._graphs = RenderGraphs(mesh.devices[0], [
+            (d, i, 1) for i, d in enumerate(mesh.devices)])
+    off = AudioEngine("cuda:0", block_frames=B, num_voices=V, mesh=mesh,
+                      render_graphs="off")
+    one = AudioEngine("cuda:0", block_frames=B, num_voices=V)
+    engines = (on, off, one)
+    for e in engines:
+        chip_smoke.build_session(e, num_voices=V, num_clips=8)
+        e.warmup()
+    assert on.stats()["graphs"] == on.warmed_graphs > 0
+    assert on.stats()["graph_segments"] == (1 if plan == "one-card" else 2)
+    before = (fw.fetch_interp.launches, md.lane_mixdown.launches)
+    for b in range(48):
+        if b == 40:
+            for e in engines:
+                chip_smoke.note_off(e, 3)
+        got, eager, want = (e.process_block().outputs for e in engines)
+        for name, a, g, w in zip(got._fields, got, eager, want):
+            assert torch.equal(a, w), f"block {b} {name} vs unsharded"
+            assert torch.equal(g, w), f"block {b} {name} eager vs unsharded"
+    for e in engines:
+        e.drain_speculation()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    stats = on.stats()
+    assert stats["spec_failures"] == 0, stats["spec_last_failure"]
+    assert stats["render_graphs"] == "graphs"
+    assert stats["graph_replays"] == sum(on.render_dispatches.values())
+    assert stats["late_captures"] == 0
+    assert fw.fetch_interp.launches - before[0] == sum(
+        e.mesh.size * e.fetch_dispatches["windows"] for e in engines)
+    assert md.lane_mixdown.launches - before[1] == sum(
+        e.mesh.size * sum(e.render_dispatches.values()) for e in engines)
