@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
     python3 chip_smoke.py --mesh-only         # phases 1, 2, 13
     python3 chip_smoke.py --mixdown-only      # phases 1, 2, the mixdown's 3, 5
+    python3 chip_smoke.py --kernels-only      # phases 1, 2, 3
     python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
@@ -25,18 +26,29 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    outside [0, 12), a non-zero init and the shapes its tiling makes special
    (MIXDOWN_CASES), each through 16-, 8- and 4-byte copy chunks where the
    shape allows them; `out` written over `init`; a 4-byte aligned view;
+   the voice prep, voice post and finish kernels against their plain
+   versions, torch.equal: the prep on hostile programs (every ADSR stage
+   and release mode, releases, starts and stops mid-block, wrap segments
+   with loop periods, beat-quantized resets, inactive rows, pan at +-1) at
+   (V, B) = (1024, 128) and (1024, 1024), from strided and from own
+   columns; the post on the fetch's taps of those programs, also into a
+   stacked slice; the finish on one block's and a stacked H=16 horizon's
+   lane mix at both B;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
    "cuda" (fetch resolves to the windows kernel) and on "cpu" (the plain
    gather path): 8 superblocks (B=1024), then 16 live blocks (B=128),
    every block compared (voice_peaks atol 2e-6; lane_mix and master rtol
-   1e-5, atol 2e-6 x voices in the densest lane); the fetch kernel's launch
-   count must equal the dispatched blocks, the mixdown kernel's the
-   engines' renders, and no block may fall back to gather;
+   1e-5, atol 2e-6 x voices in the densest lane); the voice prep, fetch
+   and voice post kernels' launch counts must equal the dispatched blocks,
+   the mixdown's and the finish's the engines' renders, and no block may
+   fall back to gather;
 5. timing      — per-block engine: superblock realtime factor, live-block
    ms, host program and dispatch ms, a torch.profiler pass per geometry
-   (device ms and kernels per block, device busy share); default engine:
+   (device ms and kernels per block beside those of the render before its
+   voice kernels, each kernel's share,
+   device busy share); default engine:
    realtime factor and ms/block at both geometries, SLO misses per kind,
    DSP load, the horizon-build / adoption-wait / emit spans, and a paced
    live run (one block per period); kernel and plain fetch ms on
@@ -49,7 +61,10 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    inputs left in L2, and any --compare source of it), its plain version,
    the one-hot torch.matmul it replaces and an empty kernel on its grid, on
    the session's last per-block contributions at B=1024 and B=128 and on a
-   stacked H=16 horizon at B=128, each beside its bound;
+   stacked H=16 horizon at B=128, each beside its bound; the voice prep,
+   voice post and finish kernels and their plain versions on the session's
+   last per-block dispatch at B=1024 and B=128 and the finish on a stacked
+   H=16 horizon, each beside its bound;
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -98,7 +113,8 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    options: master, lane_mix, lane_peaks, lane_rms and voice_peaks
    bit-equal (the carried in-order lane mixdown); the windows kernel's
    launches must equal the unsharded engine's windows blocks plus k x each
-   mesh engine's, the mixdown kernel's k x each engine's renders, every
+   mesh engine's (the voice prep and post alike), the mixdown kernel's k x
+   each engine's renders, the finish's each engine's renders, every
    render of a graph engine a replay, a late capture or a stale render;
    each shard's fetch and mixdown call (V/k voices) bit-equal to the plain
    version; realtime factor, process_block ms, device ms and kernels a
@@ -120,7 +136,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 15. bench       — the port's benchmark (python -m libzl_tpu_torch.bench) in
    process at its short sizes: every key of its line present, every cell
    finite and positive, none failed or skipped, no share of a bound over
-   100, both kernels launched; the line printed behind the card's name;
+   100, every kernel launched; the line printed behind the card's name;
 16. graphs      — render graphs (libzl_tpu_torch/engine/graphs.py): a
    default engine's every captured graph (B=128 and B=1024, f32 and int16
    banks) replayed on the session's real programs, every output field
@@ -141,7 +157,8 @@ phases 4, 6, 7, 8, 13, 14, 15 and 16, each counted from 0 around its run; `ms`,
 `plain_ms`, `bound_ms` and `library_ms` are those of the inputs named by its
 `inputs`: for the fetch fixed synthetic inputs, with its `session_` keys
 those of the session's last per-block dispatch at B=1024; for the mixdown
-that dispatch's contributions); the last line is {"ok": true, "device":
+that dispatch's contributions; for the voice prep, voice post and finish
+that dispatch's own calls); the last line is {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -162,6 +179,7 @@ import torch
 
 try:
     from libzl_tpu_torch import bench
+    from libzl_tpu_torch.ops import launch_tally
     from libzl_tpu_torch.utils.roofline import fetch_bound, mixdown_bound
 except ImportError as exc:
     print(f"chip_smoke: the port's package is not beside this script "
@@ -207,6 +225,21 @@ MIXDOWN_SOURCE = "libzl_tpu_torch/csrc/lane_mixdown.cu"
 MIXDOWN_REPLACES = "libzl_tpu/ops/voice.py:687"
 MIXDOWN_INPUTS = (f"the north-star session's last per-block contributions, "
                   f"V={NUM_VOICES} B={SUPER_BLOCK}")
+# the kernels around the fetch and the mixdown: (source, what each replaces,
+# XLA-fused in the reference, not Pallas)
+RENDER_KERNELS = {
+    "voice_prep": ("libzl_tpu_torch/csrc/voice_prep.cu",
+                   "libzl_tpu/ops/voice.py:496"),
+    "voice_post": ("libzl_tpu_torch/csrc/voice_post.cu",
+                   "libzl_tpu/ops/voice.py:612"),
+    "finish_block": ("libzl_tpu_torch/csrc/finish_block.cu",
+                     "libzl_tpu/engine/render.py:50"),
+}
+RENDER_INPUTS = (f"the north-star session's last per-block dispatch, "
+                 f"V={NUM_VOICES} B={SUPER_BLOCK}")
+# the per-block engine with graphs before the voice kernels, when a block's
+# body was ~260 plain ops (PERF.md section 5): device ms and kernels a block
+PLAIN_BODY_DEVICE = {SUPER_BLOCK: (0.776, 275), LIVE_BLOCK: (0.465, 260)}
 
 
 class SmokeFailure(RuntimeError):
@@ -219,20 +252,14 @@ def check(cond: bool, msg: str) -> None:
 
 
 def reset_launches() -> None:
-    """Zero both kernels' launch counts."""
-    from libzl_tpu_torch.ops import fetch_windows as fw
-    from libzl_tpu_torch.ops import mixdown as md
-
-    fw.fetch_interp.launches = 0
-    md.lane_mixdown.launches = 0
+    """Zero every kernel's launch count."""
+    launch_tally.reset()
 
 
 def read_launches() -> dict:
-    from libzl_tpu_torch.ops import fetch_windows as fw
-    from libzl_tpu_torch.ops import mixdown as md
-
-    return {"fetch_interp": fw.fetch_interp.launches,
-            "lane_mixdown": md.lane_mixdown.launches}
+    """Every kernel's launch count, by name: fetch_interp, lane_mixdown,
+    voice_prep, voice_post, finish_block."""
+    return launch_tally.counts()
 
 
 def add_launches(total: dict, launches: dict) -> dict:
@@ -258,16 +285,22 @@ def reset_counts(engines) -> None:
 
 
 def check_launches(launches: dict, windows: int, engines, label: str):
-    """The fetch kernel launched once a windows block (x shards: `windows`
-    counts them), the mixdown once a shard a render; every render of a
-    graph engine a graph replay or a capture (check_graph_renders)."""
-    check(launches["fetch_interp"] == windows,
-          f"{label}: fetch kernel launched {launches['fetch_interp']} times "
-          f"for {windows} windows blocks")
+    """The voice prep, fetch and voice post kernels launched once a windows
+    block (x shards: `windows` counts them), the mixdown once a shard a
+    render, the finish once a render; every render of a graph engine a
+    graph replay or a capture (check_graph_renders)."""
+    for name in ("voice_prep", "fetch_interp", "voice_post"):
+        check(launches[name] == windows,
+              f"{label}: {name} kernel launched {launches[name]} times for "
+              f"{windows} windows blocks")
     want = renders(engines)
     check(launches["lane_mixdown"] == want,
           f"{label}: mixdown kernel launched {launches['lane_mixdown']} "
           f"times for {want} shard renders")
+    want = sum(sum(e.render_dispatches.values()) for e in engines)
+    check(launches["finish_block"] == want,
+          f"{label}: finish kernel launched {launches['finish_block']} times "
+          f"for {want} renders")
     for e in engines:
         check_graph_renders(e, label)
 
@@ -602,6 +635,159 @@ def phase_mixdown(device) -> float:
     return worst
 
 
+def render_program(rng, V: int, B: int, W: int, device):
+    """A hostile V-voice program on `device`, as a block's render sees it
+    (strided column views of the fused program): every ADSR stage and both
+    release modes, releases at and before frame 0, mid-block and past the
+    block, immediate cuts and sub-frame releases, starts and stops
+    mid-block, up to S-1 wrap segments with and without a loop period, W
+    beat-quantized resets, negative positions, inactive rows, pan at -1, +1
+    and between (tests/test_torch_kernels.hostile_program's kinds)."""
+    from libzl_tpu_torch.ops import adsr, voice
+
+    S = voice.MAX_SEGMENTS_PER_BLOCK
+    i32, f32 = np.int32, np.float32
+    start = np.where(rng.random(V) < 0.3, rng.integers(1, B, V), 0)
+    seg_start = np.full((V, S), B)
+    seg_start[:, 0] = start
+    for v in range(V):
+        n = int(rng.integers(0, S))
+        seg_start[v, 1:1 + n] = np.sort(rng.integers(start[v] + 1, B + 1, n))
+    inv_rel = rng.choice([0.0, 2e-4, 1e-3, 2e-3, 0.5, 1.5], V)
+    rel_log2 = np.where(inv_rel >= 1, -200.0, np.log2(
+        f32(1) - np.minimum(inv_rel, 0.5).astype(f32)))
+    release = rng.choice([0, 1, B // 2, B - 1, B + 5, int(voice.RELEASE_NONE),
+                          -1], V)
+    release = np.where(rng.random(V) < 0.4, rng.integers(0, B, V), release)
+    env = adsr.AdsrProgram(
+        stage0=rng.integers(0, 5, V), env0=rng.uniform(0, 1, V),
+        a_rate=np.where(rng.random(V) < 0.2, 0.0, rng.uniform(0, 0.02, V)),
+        d_rate=np.where(rng.random(V) < 0.2, 0.0, rng.uniform(0, 0.002, V)),
+        sustain=rng.uniform(0, 1, V), rel_rate=rng.uniform(0, 0.002, V),
+        inv_rel=inv_rel, rel_log2=rel_log2, release_frame=release,
+        rel_mode=rng.integers(0, 2, V))
+    pan = rng.uniform(-1, 1, V)
+    pan[rng.random(V) < 0.3] = rng.choice([-1.0, 1.0])
+    prog = voice.VoiceProgram(
+        active=(rng.random(V) < 0.85).astype(i32),
+        base=rng.integers(0, 4096, V), len_minus1=rng.integers(1, 40000, V),
+        win_blk_a=rng.integers(0, 64, V), win_blk_b=rng.integers(0, 64, V),
+        seg_start=seg_start, seg_pos_int=rng.integers(-40, 30000, (V, S)),
+        seg_pos_frac=rng.random((V, S)), rate_int=rng.integers(0, 4, V),
+        rate_frac=rng.random(V), start_frame=start,
+        stop_frame=np.where(rng.random(V) < 0.3, rng.integers(1, B + 1, V),
+                            B),
+        gain=rng.uniform(0, 1, V), clip_volume=rng.uniform(0, 1, V), pan=pan,
+        lane=rng.integers(0, 12, V),
+        loop_period=np.where(rng.random(V) < 0.5, rng.integers(20, 400, V),
+                             0),
+        bq_reset=np.minimum(np.sort(rng.integers(0, B + B // 2, (V, W)),
+                                    axis=1), B),
+        env=env)
+    fused = voice.fuse_packed(*voice.pack_program(prog))
+    return voice.unpack_program(*voice.split_fused(
+        torch.from_numpy(fused).to(device)))
+
+
+def own_columns(prog):
+    """The program with every column a tensor of its own, as a horizon
+    slice's are (ops/voice.unpack_horizon_slice)."""
+    return prog._replace(
+        env=prog.env._replace(**{n: getattr(prog.env, n).contiguous()
+                                 for n in prog.env._fields}),
+        **{n: getattr(prog, n).contiguous() for n in prog._fields
+           if n != "env"})
+
+
+def finish_inputs(rng, H: int, B: int, device):
+    """A lane mix [H, 12, B, 2] with exact zeros and -0.0 mixed in, and
+    packed strips [5, 11] with muted strips and pans at -1 and +1."""
+    mix = (rng.standard_normal((H, 12, B, 2)) * 0.3).astype(np.float32)
+    mix[rng.random(mix.shape) < 0.05] = 0.0
+    mix[rng.random(mix.shape) < 0.05] = -0.0
+    strips = np.stack([
+        rng.uniform(0, 1.2, 11), rng.uniform(0, 1, 11), rng.uniform(0, 1, 11),
+        np.concatenate([[-1.0, 1.0], rng.uniform(-1, 1, 9)]),
+        (rng.random(11) < 0.2).astype(np.float64)]).astype(np.float32)
+    return (torch.from_numpy(mix).to(device),
+            torch.from_numpy(strips).to(device))
+
+
+def _diff(a, b) -> float:
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def phase_render_kernels(device) -> dict:
+    """The voice prep, voice post and finish kernels against their plain
+    versions on the card, torch.equal: the prep on hostile programs at
+    (V, B) = (1024, 128) and (1024, 1024), W = 0 and 3, from a block's
+    strided columns and from a horizon slice's own tensors; the post on the
+    fetch kernel's taps and the prep's gain and mask of those programs (pan
+    a strided column), also into a slice of a stacked buffer; the finish on
+    one block's and a stacked H=16 horizon's lane mix at B=128 and B=1024.
+    Returns each kernel's max abs error (0)."""
+    from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.ops import finish as fin
+    from libzl_tpu_torch.ops import voice_render as vr
+
+    rng = np.random.default_rng(2468)
+    sound = torch.from_numpy((rng.standard_normal((2, 1 << 20)) * 0.3)
+                             .astype(np.float32)).to(device)
+    worst = dict.fromkeys(RENDER_KERNELS, 0.0)
+    names = ("pos_local", "alpha", "g", "valid")
+    for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
+        for W in (0, 3):
+            prog = render_program(rng, V, B, W, device)
+            got = vr.voice_prep(prog, B)
+            want = vr.voice_prep_plain(prog, B)
+            own = vr.voice_prep(own_columns(prog), B)
+            torch.cuda.synchronize()
+            for name, a, b, c in zip(names, got, want, own):
+                err = max(_diff(a, b), _diff(c, b))
+                check(torch.equal(a, b) and torch.equal(c, b),
+                      f"voice_prep {name} differs from plain at V={V} B={B} "
+                      f"W={W}: {err:.3e}")
+                worst["voice_prep"] = max(worst["voice_prep"], err)
+            exp_rows = prog.env.rel_mode == 1
+            interp = fw.fetch_interp(sound, got[0], got[1],
+                                     prog.win_blk_a.contiguous(),
+                                     prog.win_blk_b.contiguous())
+            args = (interp, got[2], got[3], prog.pan)
+            peak, contrib = vr.voice_post(*args)
+            want_peak, want_contrib = vr.voice_post_plain(*args)
+            buf = torch.full((3, V, B, 2), 7.0, device=device)
+            peak2, _ = vr.voice_post(*args, out=buf[1])
+            torch.cuda.synchronize()
+            err = max(_diff(contrib, want_contrib), _diff(peak, want_peak))
+            check(torch.equal(contrib, want_contrib)
+                  and torch.equal(peak, want_peak)
+                  and torch.equal(buf[1], want_contrib)
+                  and torch.equal(peak2, want_peak)
+                  and bool((buf[0] == 7.0).all() and (buf[2] == 7.0).all()),
+                  f"voice_post differs from plain at V={V} B={B} W={W}: "
+                  f"{err:.3e}")
+            worst["voice_post"] = max(worst["voice_post"], err)
+            check(bool(torch.isfinite(contrib).all()), "non-finite contrib")
+            print(f"voice kernels V={V} B={B} W={W}: prep torch.equal to "
+                  f"plain (strided and own columns; valid frames "
+                  f"{int(got[3].sum())} of {V * B}, exponential-release "
+                  f"voices {int(exp_rows.sum())}), post torch.equal (also "
+                  f"into a stacked slice; peak max {float(peak.max()):.4f})")
+    for B in (LIVE_BLOCK, SUPER_BLOCK):
+        for H in (1, 16):
+            mix, strips = finish_inputs(rng, H, B, device)
+            got = fin.finish(mix, strips)
+            want = fin.finish_plain(mix, strips)
+            torch.cuda.synchronize()
+            err = max(_diff(a, b) for a, b in zip(got, want))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"finish differs from plain at H={H} B={B}: {err:.3e}")
+            worst["finish_block"] = max(worst["finish_block"], err)
+            print(f"finish H={H} B={B}: strips, peaks, RMS and master peak "
+                  f"torch.equal to plain")
+    return worst
+
+
 def _densest_lane(engine) -> int:
     act = engine.pool.active
     return int(np.bincount(engine.pool.lane[act], minlength=12).max()) \
@@ -826,6 +1012,8 @@ def _device_profile(engine, n_blocks: int) -> dict:
         "kernels": sum(e.count for e in dev) / n_blocks,
         "fetch_share": share("fetch_interp_kernel"),
         "mixdown_share": share("lane_mixdown_kernel"),
+        **{f"{name}_share": share(f"{name}_kernel")
+           for name in RENDER_KERNELS},
     }
 
 
@@ -835,24 +1023,83 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
               f"events in the profiler)")
         return
     print(f"[{card}] {label} device profile: {prof['device_ms']:.4f} ms "
-          f"device per block, {prof['kernels']:.1f} kernels per block, fetch "
-          f"kernel {100 * prof['fetch_share']:.2f}% and mixdown kernel "
-          f"{100 * prof['mixdown_share']:.2f}% of device time; device "
-          f"busy {100 * prof['device_ms'] / block_ms:.1f}% of the "
-          f"unprofiled process_block time ({block_ms:.4f} ms)")
+          f"device per block, {prof['kernels']:.1f} kernels per block; "
+          f"shares of device time: "
+          + ", ".join(f"{name} {100 * prof[f'{name}_share']:.2f}%"
+                      for name in ("voice_prep", "fetch", "voice_post",
+                                   "mixdown", "finish_block"))
+          + f"; device busy {100 * prof['device_ms'] / block_ms:.1f}% of "
+          f"the unprofiled process_block time ({block_ms:.4f} ms)")
 
 
-def capture_dispatch(engine) -> tuple:
-    """(fetch (args, r_max), mixdown (contrib, lane, init)) of one more
-    block of a one-device per-block engine: the session's last per-block
-    dispatch."""
+def capture_dispatch(engine) -> dict:
+    """Every kernel call of one more block of a one-device per-block engine
+    (the session's last per-block dispatch), one of each: bench.capture_calls'
+    record."""
     with eager_renders(engine):
         calls = bench.capture_calls(engine.process_block)
     torch.cuda.synchronize()
-    check(len(calls["fetch"]) == 1 and len(calls["mixdown"]) == 1,
-          f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
-          f"calls in one block")
-    return calls["fetch"][0], calls["mixdown"][0]
+    check(all(len(c) == 1 for c in calls.values()),
+          f"kernel calls in one block: "
+          f"{ {k: len(c) for k, c in calls.items()} }")
+    return calls
+
+
+def time_render_kernels(device, card: str, res: dict,
+                        session: dict) -> None:
+    """The voice prep, voice post and finish kernels and their plain
+    versions in turns (kernel, plain, plain, kernel; p50 of 50 CUDA-event
+    timings each, L2 flushed, queued behind a spin) on the session's last
+    per-block dispatch at B=1024 and B=128 (`session`: capture_dispatch's
+    record by B), and the finish on a stacked H=16 horizon at B=128; each
+    beside its bound (utils/roofline). Keys `<name>_{kernel,plain,bound}_ms_
+    <case>` and `<name>_bound_by_<case>`."""
+    from libzl_tpu_torch.ops import finish as fin
+    from libzl_tpu_torch.ops import voice_render as vr
+    from libzl_tpu_torch.utils import roofline as rl
+
+    cases = {}
+    for B, calls in session.items():
+        key = f"{NUM_VOICES}x{B}_session"
+        (prog, b, ratio), = calls["voice_prep"]
+        post, = calls["voice_post"]
+        mix, strips = calls["finish"][0]
+        cases[("voice_prep", key)] = (
+            lambda prog=prog, b=b, ratio=ratio: vr.voice_prep(prog, b, ratio),
+            lambda prog=prog, b=b, ratio=ratio: vr.voice_prep_plain(
+                prog, b, ratio),
+            rl.voice_prep_bound(prog, b))
+        cases[("voice_post", key)] = (
+            lambda post=post: vr.voice_post(*post),
+            lambda post=post: vr.voice_post_plain(*post),
+            rl.voice_post_bound(*post))
+        cases[("finish_block", key)] = (
+            lambda mix=mix, strips=strips: fin.finish(mix, strips),
+            lambda mix=mix, strips=strips: fin.finish_plain(mix, strips),
+            rl.finish_bound(mix, strips))
+    mix, strips = finish_inputs(np.random.default_rng(98), 16, LIVE_BLOCK,
+                                device)
+    cases[("finish_block", f"16x{LIVE_BLOCK}_horizon")] = (
+        lambda: fin.finish(mix, strips), lambda: fin.finish_plain(mix, strips),
+        rl.finish_bound(mix, strips))
+    for (name, key), (kernel, plain, bound) in cases.items():
+        fns = {"kernel": kernel, "plain": plain}
+        for f in fns.values():
+            for _ in range(5):
+                f()
+        samples = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            samples[which] += _events_ms(fns[which], 25, True)
+        ms = {which: float(np.median(v)) for which, v in samples.items()}
+        res[f"{name}_kernel_ms_{key}"] = ms["kernel"]
+        res[f"{name}_plain_ms_{key}"] = ms["plain"]
+        res[f"{name}_bound_ms_{key}"] = bound["bound_ms"]
+        res[f"{name}_bound_by_{key}"] = bound["bound_by"]
+        print(f"[{card}] {name} {key}: kernel {ms['kernel']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms (p50 of 50 CUDA-event timings each, in "
+              f"turns); bound {bound['bound_ms']:.5f} ms ({bound['bytes']} "
+              f"bytes, {bound['bound_by']}): the kernel reaches "
+              f"{100 * bound['bound_ms'] / ms['kernel']:.1f}% of it")
 
 
 def time_mixdown(card: str, res: dict, key: str, contrib, lane,
@@ -1030,8 +1277,7 @@ def phase_timing(device, card: str, versions: dict,
     res["super_dispatch_ms_p50"] = prof["dispatch"]["p50_ms"]
     res["super_process_block_ms_p50"] = prof["process_block"]["p50_ms"]
     super_profile = _device_profile(eng, 20)
-    session, session_mix = {}, {}
-    session[SUPER_BLOCK], session_mix[SUPER_BLOCK] = capture_dispatch(eng)
+    calls = {SUPER_BLOCK: capture_dispatch(eng)}
     print(f"[{card}] superblock realtime factor {res['rt_superblock']:.3f}x "
           f"(rounds {', '.join(f'{r:.3f}' for r in rounds)}; 1024 voices, "
           f"64 clips, B=1024, 48 kHz)")
@@ -1061,7 +1307,9 @@ def phase_timing(device, card: str, versions: dict,
     res["live_host_program_ms_p50"] = lprof["host_program"]["p50_ms"]
     res["live_dispatch_ms_p50"] = lprof["dispatch"]["p50_ms"]
     live_profile = _device_profile(live, 40)
-    session[LIVE_BLOCK], session_mix[LIVE_BLOCK] = capture_dispatch(live)
+    calls[LIVE_BLOCK] = capture_dispatch(live)
+    session = {B: c["fetch"][0] for B, c in calls.items()}
+    session_mix = {B: c["mixdown"][0] for B, c in calls.items()}
     print(f"[{card}] live block (B=128, 1024 voices) ms/block p50 "
           f"{res['live_ms_p50']:.4f} chained mean "
           f"{res['live_ms_chained_mean']:.4f} (realtime "
@@ -1078,6 +1326,14 @@ def phase_timing(device, card: str, versions: dict,
                    lprof["process_block"]["p50_ms"])
     res.update({f"super_profile_{k}": v for k, v in super_profile.items()})
     res.update({f"live_profile_{k}": v for k, v in live_profile.items()})
+    for B, prof in ((SUPER_BLOCK, super_profile), (LIVE_BLOCK, live_profile)):
+        ms, kernels = PLAIN_BODY_DEVICE[B]
+        print(f"[{card}] per-block engine B={B}, graphs: "
+              + (f"{prof['device_ms']:.4f} ms of device and "
+                 f"{prof['kernels']:.1f} kernels a block"
+                 if prof else "device time not measured")
+              + f" (before the voice kernels: {ms} ms, "
+              f"{kernels} kernels)")
 
     _default_timing(device, card, res)
 
@@ -1171,6 +1427,7 @@ def phase_timing(device, card: str, versions: dict,
               f"bit-equal outputs; p50 of 50 each, in turns)")
 
     time_mixdowns(device, card, res, session_mix, mix_versions)
+    time_render_kernels(device, card, res, calls)
     torch.cuda.synchronize()
     return res
 
@@ -1710,10 +1967,12 @@ def phase_bridge(device, wavs: list, tmp: str) -> dict:
           f"rendered blocks windows {windows} gather {gather}, renders "
           f"{mixdowns}; cpu run {ref['seconds']:.1f} s")
     check(gather == 0, "a block fell back to the gather fetch")
-    check(launches["fetch_interp"] == windows, f"fetch kernel launched "
-          f"{launches['fetch_interp']} times for {windows} rendered blocks")
-    check(launches["lane_mixdown"] == mixdowns, f"mixdown kernel launched "
-          f"{launches['lane_mixdown']} times for {mixdowns} renders")
+    for name in ("voice_prep", "fetch_interp", "voice_post"):
+        check(launches[name] == windows, f"{name} kernel launched "
+              f"{launches[name]} times for {windows} rendered blocks")
+    for name in ("lane_mixdown", "finish_block"):   # one shard a render
+        check(launches[name] == mixdowns, f"{name} kernel launched "
+              f"{launches[name]} times for {mixdowns} renders")
     torch.cuda.synchronize()
     return launches
 
@@ -1739,7 +1998,7 @@ def pump_launches(engine, label: str) -> dict:
     launches = read_launches()
     check_launches(launches, engine.fetch_dispatches["windows"], [engine],
                    label)
-    check(launches["fetch_interp"] > 0 and launches["lane_mixdown"] > 0,
+    check(all(n > 0 for n in launches.values()),
           f"{label}: a kernel was never launched: {launches}")
     return launches
 
@@ -2026,18 +2285,33 @@ def _mesh_launches(engines: dict, label: str) -> dict:
 
 
 def check_shard_kernels(engine, k: int) -> int:
-    """Each shard's windows fetch and lane mixdown (from the mix carried
-    from the shard before) of one more block, rendered eagerly, against the
-    plain versions: bit-equal. Returns the per-shard voice count."""
+    """Each shard's voice prep, windows fetch, voice post and lane mixdown
+    (from the mix carried from the shard before) of one more block, and the
+    render's finish, rendered eagerly, against the plain versions:
+    bit-equal. Returns the per-shard voice count."""
     from libzl_tpu_torch.ops import fetch_windows as fw
+    from libzl_tpu_torch.ops import finish as fin
     from libzl_tpu_torch.ops import mixdown as md
+    from libzl_tpu_torch.ops import voice_render as vr
 
     with eager_renders(engine):
         calls = bench.capture_calls(engine.process_block)
     torch.cuda.synchronize()
-    check(len(calls["fetch"]) == k and len(calls["mixdown"]) == k,
-          f"{len(calls['fetch'])} fetch and {len(calls['mixdown'])} mixdown "
-          f"calls for {k} shards")
+    counts = {name: len(c) for name, c in calls.items()}
+    check(counts == dict(fetch=k, mixdown=k, voice_prep=k, voice_post=k,
+                         finish=1), f"kernel calls {counts} for {k} shards")
+    for prog, B, ratio in calls["voice_prep"]:
+        check(all(torch.equal(a, b) for a, b in zip(
+            vr.voice_prep(prog, B, ratio), vr.voice_prep_plain(prog, B, ratio))),
+              f"shard voice prep at V={prog.active.shape[0]} differs")
+    for args in calls["voice_post"]:
+        check(all(torch.equal(a, b) for a, b in zip(
+            vr.voice_post(*args), vr.voice_post_plain(*args))),
+              f"shard voice post at V={args[0].shape[0]} differs")
+    for args in calls["finish"]:
+        check(all(torch.equal(a, b) for a, b in zip(
+            fin.finish(*args), fin.finish_plain(*args))),
+              "the mesh's finish differs from plain")
     for args, r_max in calls["fetch"]:
         check(torch.equal(fw.fetch_interp(*args, r_max=r_max),
                           fw.fetch_interp_plain(*args, r_max=r_max)),
@@ -2116,7 +2390,8 @@ def phase_mesh(device, card: str) -> tuple:
                   f", kernel launches {json.dumps(launches)} (= sum of k x "
                   f"blocks, k x renders; graph engines: every render a "
                   f"replay, late capture or stale render)"
-                  + (f"; shard fetches and mixdowns bit-equal to plain at V="
+                  + (f"; shard voice preps, fetches, voice posts and "
+                     f"mixdowns and the finish bit-equal to plain at V="
                      f"{sorted(shard_v.values())}" if shard_v else "")
                   + f" ({time.perf_counter() - t0:.1f} s)")
             print(f"[{card}] mesh {mode} B={B}: "
@@ -2180,8 +2455,9 @@ def phase_mesh_cards(card: str) -> dict:
                   for kk, w in worst.items())
               + f"; windows blocks {windows}, kernel launches "
               f"{json.dumps(launches)} (= sum of k x blocks, k x renders)"
-              + (f"; each card's fetch and mixdown bit-equal to plain at "
-                 f"V={shard_v}" if shard_v else "")
+              + (f"; each card's voice kernels, fetch and mixdown, and the "
+                 f"finish, bit-equal to plain at V={shard_v}" if shard_v
+                 else "")
               + f" ({time.perf_counter() - t0:.1f} s)")
         print(f"[{card}] mesh across {k} cards {mode} B={B}: "
               + _mesh_report(engines, warm, timing)
@@ -2346,7 +2622,7 @@ def phase_bench(card: str) -> tuple:
     """The port's benchmark (python -m libzl_tpu_torch.bench) in process at
     its short sizes and a short budget: every key of its line present, every
     cell finite and positive, no cell failed or skipped, no share of a bound
-    over 100, and both kernels launched. Returns (the line, the kernels'
+    over 100, and every kernel launched. Returns (the line, the kernels'
     launches)."""
     run = bench.Run("cuda:0", BENCH_BUDGET_S, reserve_s=5.0)
     reset_launches()
@@ -2356,7 +2632,7 @@ def phase_bench(card: str) -> tuple:
     line = run.line(partial=False)
     print(f"[{card}] bench {json.dumps(line)}; kernel launches "
           f"{json.dumps(launches)}")
-    check(launches["fetch_interp"] > 0 and launches["lane_mixdown"] > 0,
+    check(all(n > 0 for n in launches.values()),
           f"bench: a kernel was never launched: {launches}")
     check(not run.failed and not run.skipped,
           f"bench cells failed {run.failed}, skipped {run.skipped}")
@@ -2392,6 +2668,9 @@ def main() -> int:
                     help="run phases 1 and 2, then only the lane mixdown's "
                          "part of phase 3 and its timings of phase 5 (on "
                          "random contributions at the session's lanes)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1, 2 and 3 (every kernel against its "
+                         "plain version) and stop")
     ap.add_argument("--graphs-only", action="store_true",
                     help="run phases 1 and 2, then only phase 16 (render "
                          "graphs)")
@@ -2463,6 +2742,13 @@ def main() -> int:
     with _phase("3 kernel"):
         err = phase_kernel(device)
         mix_err = phase_mixdown(device)
+        render_err = phase_render_kernels(device)
+    if opts.kernels_only:
+        print(f"max abs errors: fetch {err:.3e}, mixdown {mix_err:.3e}, "
+              f"{json.dumps(render_err)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     with _phase("4 slice"):
         launches = phase_slice(device)
     with _phase("5 timing"):
@@ -2544,7 +2830,22 @@ def main() -> int:
         "library_ms": timing[f"mix_library_ms_{session}"],
         # an empty kernel on the kernel's grid: the launch's share of `ms`
         "empty_launch_ms": timing[f"mix_empty_ms_{session}"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": render_err[name],
+        "inputs": RENDER_INPUTS,
+        "ms": timing[f"{name}_kernel_ms_{session}"],
+        "plain_ms": timing[f"{name}_plain_ms_{session}"],
+        "bound_ms": timing[f"{name}_bound_ms_{session}"],
+        "bound_by": timing[f"{name}_bound_by_{session}"],
+        # no single PyTorch call computes these functions: each is ~20 to
+        # ~150 plain ops (the plain version)
+        "library_ms": None,
+    } for name, (source, replaces) in RENDER_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

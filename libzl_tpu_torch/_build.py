@@ -37,8 +37,9 @@ NATIVE = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "libzl_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default home
 
-# -fmad stays at nvcc's default (true); the fetch kernel's lerp rounds each
-# product itself (__fmul_rn), so its tap paths agree to the bit
+# -fmad stays at nvcc's default (true); every kernel rounds each product and
+# sum that must match a plain version itself (__fmul_rn, __fadd_rn, ...), so
+# no contraction into an FMA changes a bit
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -157,6 +158,7 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = bind_fetch(ctypes.CDLL(str(build())))
         bind_mixdown(lib)
+        bind_render(lib)
         # B, region, int16 bank -> staged samples per channel and voice
         lib.zl_fetch_interp_stage_cap.argtypes = [ctypes.c_int64,
                                                   ctypes.c_int64,
@@ -195,6 +197,25 @@ def bind_mixdown(lib: ctypes.CDLL) -> ctypes.CDLL:
         # H, E, L, stream: an empty kernel on the mixdown's grid
         lib.zl_lane_mixdown_empty.argtypes = [i64, i64, i64, ptr]
         lib.zl_lane_mixdown_empty.restype = ctypes.c_int
+    return lib
+
+
+def bind_render(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of the kernels around the fetch and the
+    mixdown: voice prep, voice post and the finish."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    # columns (a PrepColumns by reference), S, W, pos_local, alpha, g,
+    # valid, V, B, region, stream
+    lib.zl_voice_prep.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64,
+                                  i64, i64, ptr]
+    # interp, g, valid, pan, pan stride, contrib, peak, V, B, stream
+    lib.zl_voice_post.argtypes = [ptr, ptr, ptr, ptr, i64, ptr, ptr, i64,
+                                  i64, ptr]
+    # mix, strips, strips out, meters, master peak, H, L, B, stream
+    lib.zl_finish_block.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                    ptr]
+    for fn in (lib.zl_voice_prep, lib.zl_voice_post, lib.zl_finish_block):
+        fn.restype = ctypes.c_int
     return lib
 
 

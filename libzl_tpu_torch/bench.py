@@ -24,10 +24,11 @@ the first card; there is no "cuda if available" picker) and reports:
   enqueue hidden behind a spin (`kernel_ms_p50`), and the same loop over one
   trivial op (`dispatch_floor_ms`), so launch time is not read as kernel
   time;
-- the two hand-written kernels on that program's inputs, CUDA events with the
-  L2 flushed: `fetch_kernel_ms`, `mixdown_kernel_ms`, beside
+- the five hand-written kernels on that program's inputs, CUDA events with
+  the L2 flushed: `voice_prep_kernel_ms`, `fetch_kernel_ms`,
+  `voice_post_kernel_ms`, `mixdown_kernel_ms`, `finish_kernel_ms`, beside
   `kernel_bound_ms`, the sum of their bounds (utils/roofline);
-  `kernel_pct_of_bound` is that bound over the two kernels' time (never over
+  `kernel_pct_of_bound` is that bound over the kernels' time (never over
   100), `pct_of_bound` the bound over `device_ms_p50` (the reference's
   meaning: the rest is host build, upload and dispatch);
 - 96 voices at B=1024 (`realtime_factor_96voices`) and 96 live voices on the
@@ -87,7 +88,9 @@ CELLS = (
     "rt_liveblock", "device_ms_p50", "latency_p50_ms", "latency_mean_ms",
     "sync_ms_p50", "bounce_ms_per_block", "bounce_sync_amortization",
     "kernel_ms_p50", "kernel_host_ms_p50", "dispatch_floor_ms",
-    "fetch_kernel_ms", "mixdown_kernel_ms", "kernel_bound_ms", "pct_of_bound",
+    "fetch_kernel_ms", "mixdown_kernel_ms", "voice_prep_kernel_ms",
+    "voice_post_kernel_ms", "finish_kernel_ms", "kernel_bound_ms",
+    "pct_of_bound",
     "kernel_pct_of_bound", "realtime_factor_96voices",
     "rt_liveblock_96on1024_bucketed",
     *(f"rt_superblock_mesh_k{k}" for k in MESH_SHARDS),
@@ -313,27 +316,49 @@ def events_ms(fn, iters: int, primed: bool, flush_l2: bool = True) -> list:
 
 def capture_calls(fn) -> dict:
     """Run `fn()` (a render, or an engine's process_block); the arguments of
-    each kernel call it made (one a shard under a mesh): {"fetch": [(args,
-    r_max)], "mixdown": [(contrib, lane, init)]}."""
-    from .ops import voice
+    each kernel call it made (one a shard under a mesh, the finish one a
+    render): {"fetch": [(args, r_max)], "mixdown": [(contrib, lane, init)],
+    "voice_prep": [(prog, block_frames, max_pitch_ratio)], "voice_post":
+    [(interp, g, valid, pan)], "finish": [(lane_mix, strips_packed)]}."""
+    from .ops import finish, voice
     from .parallel import sharding
 
-    calls = {"fetch": [], "mixdown": []}
-    real_fetch, real_mix = voice.fetch_interp, sharding.lane_mixdown
+    calls = {"fetch": [], "mixdown": [], "voice_prep": [], "voice_post": [],
+             "finish": []}
+    real = {"fetch": voice.fetch_interp, "mixdown": sharding.lane_mixdown,
+            "voice_prep": voice.voice_prep, "voice_post": voice.voice_post,
+            "finish": finish.finish}
 
     def fetch(*args, **kw):
         calls["fetch"].append((args, kw.get("r_max", 4.0)))
-        return real_fetch(*args, **kw)
+        return real["fetch"](*args, **kw)
 
     def mix(contrib, lane, num_lanes=12, init=None):
         calls["mixdown"].append((contrib, lane, init))
-        return real_mix(contrib, lane, num_lanes, init)
+        return real["mixdown"](contrib, lane, num_lanes, init)
+
+    def prep(prog, block_frames, max_pitch_ratio=4.0):
+        calls["voice_prep"].append((prog, block_frames, max_pitch_ratio))
+        return real["voice_prep"](prog, block_frames, max_pitch_ratio)
+
+    def post(interp, g, valid, pan, out=None):
+        calls["voice_post"].append((interp, g, valid, pan))
+        return real["voice_post"](interp, g, valid, pan, out=out)
+
+    def fin(lane_mix, strips_packed):
+        calls["finish"].append((lane_mix, strips_packed))
+        return real["finish"](lane_mix, strips_packed)
 
     voice.fetch_interp, sharding.lane_mixdown = fetch, mix
+    voice.voice_prep, voice.voice_post, finish.finish = prep, post, fin
     try:
         fn()
     finally:
-        voice.fetch_interp, sharding.lane_mixdown = real_fetch, real_mix
+        voice.fetch_interp, sharding.lane_mixdown = real["fetch"], \
+            real["mixdown"]
+        voice.voice_prep, voice.voice_post = real["voice_prep"], \
+            real["voice_post"]
+        finish.finish = real["finish"]
     return calls
 
 
@@ -542,37 +567,58 @@ def measure_kernel_resident(run: Run, engine, rounds: int = 5,
     return calls
 
 
-def roofline(run: Run, calls: dict, iters: int = 50) -> None:
-    """The two hand-written kernels on one render's inputs: their times (p50
-    of `iters` CUDA-event timings, L2 flushed, queued behind a spin; the
-    host clock and the plain versions on the CPU) and the sum of their
-    bounds. Sets `fetch_kernel_ms`, `mixdown_kernel_ms`, `kernel_bound_ms`,
-    `kernel_pct_of_bound` (the bound over the kernels' time) and
-    `pct_of_bound` (the bound over `device_ms_p50`)."""
+def kernel_calls(calls: dict) -> dict:
+    """One render's five kernel calls (capture_calls' record of a render on
+    one shard), each as a function of no arguments, with its bound
+    (utils/roofline): {name: (call, bound)}, the names those of the line's
+    `<name>_kernel_ms` keys."""
     from .ops import fetch_windows as fw
+    from .ops import finish as fin
     from .ops import mixdown as md
-    from .utils.roofline import fetch_bound, mixdown_bound
+    from .ops import voice_render as vr
+    from .utils import roofline as rl
 
-    if len(calls["fetch"]) != 1 or len(calls["mixdown"]) != 1:
-        raise RuntimeError(
-            f"the resident render made {len(calls['fetch'])} windows fetches "
-            f"and {len(calls['mixdown'])} mixdowns, expected one of each")
-    (args, r_max), (contrib, lane, init) = calls["fetch"][0], \
-        calls["mixdown"][0]
-    fns = {"fetch": lambda: fw.fetch_interp(*args, r_max=r_max),
-           "mixdown": lambda: md.lane_mixdown(contrib, lane, init=init)}
-    ms = {}
-    for name, fn in fns.items():
+    counts = {name: len(c) for name, c in calls.items()}
+    if set(counts.values()) != {1}:
+        raise RuntimeError(f"the render made {counts} kernel calls, expected "
+                           f"one of each")
+    (args, r_max), = calls["fetch"]
+    (contrib, lane, init), = calls["mixdown"]
+    (prog, B, ratio), = calls["voice_prep"]
+    post_args, = calls["voice_post"]
+    fin_args, = calls["finish"]
+    return {
+        "voice_prep": (lambda: vr.voice_prep(prog, B, ratio),
+                       rl.voice_prep_bound(prog, B)),
+        "fetch": (lambda: fw.fetch_interp(*args, r_max=r_max),
+                  rl.fetch_bound(args, r_max)),
+        "voice_post": (lambda: vr.voice_post(*post_args),
+                       rl.voice_post_bound(*post_args)),
+        "mixdown": (lambda: md.lane_mixdown(contrib, lane, init=init),
+                    rl.mixdown_bound(contrib, lane, init)),
+        "finish": (lambda: fin.finish(*fin_args), rl.finish_bound(*fin_args)),
+    }
+
+
+def roofline(run: Run, calls: dict, iters: int = 50) -> None:
+    """The five hand-written kernels on one render's inputs: their times
+    (p50 of `iters` CUDA-event timings, L2 flushed, queued behind a spin;
+    the host clock and the plain versions on the CPU) and the sum of their
+    bounds. Sets `<name>_kernel_ms` for each (`fetch_kernel_ms`,
+    `mixdown_kernel_ms`, `voice_prep_kernel_ms`, `voice_post_kernel_ms`,
+    `finish_kernel_ms`), `kernel_bound_ms`, `kernel_pct_of_bound` (the bound
+    over the kernels' time) and `pct_of_bound` (the bound over
+    `device_ms_p50`)."""
+    ms, bound_ms = {}, 0.0
+    for name, (fn, bound) in kernel_calls(calls).items():
         for _ in range(3):
             fn()
         ms[name] = float(np.median(events_ms(fn, iters, True) if run.cuda
                                    else _host_ms(fn, iters)))
-    bound_ms = (fetch_bound(args, r_max)["bound_ms"]
-                + mixdown_bound(contrib, lane, init)["bound_ms"])
-    run.set(fetch_kernel_ms=ms["fetch"], mixdown_kernel_ms=ms["mixdown"],
+        bound_ms += bound["bound_ms"]
+    run.set(**{f"{name}_kernel_ms": t for name, t in ms.items()},
             kernel_bound_ms=bound_ms,
-            kernel_pct_of_bound=100.0 * bound_ms / (ms["fetch"]
-                                                    + ms["mixdown"]))
+            kernel_pct_of_bound=100.0 * bound_ms / sum(ms.values()))
     dev = run.get("device_ms_p50")
     if dev > 0:
         run.set(pct_of_bound=100.0 * bound_ms / dev)

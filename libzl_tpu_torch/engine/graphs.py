@@ -50,8 +50,9 @@ each render shape is captured once and replayed.
   stays intact.
 - Launch counts: a kernel wrapper called under capture tallies its launch
   (ops/launch_tally.py) instead of counting it, and every replay adds the
-  key's tally (every segment's), so `fetch_interp.launches` and
-  `lane_mixdown.launches` still count the kernels that ran: k a render.
+  key's tally (every segment's), so each kernel's count still says how
+  often it ran: the voice kernels and the mixdown k a render (k shards),
+  the finish kernel once.
 - On the CPU the same keys, segments, static buffers, staging, copies,
   clone and views run with `_PlainGraph`, a graph's plain version: its
   replay re-runs the recorded step on the static buffers. There one
@@ -69,7 +70,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import fetch_windows, launch_tally, mixdown
+from ..ops import launch_tally
 from . import render as render_mod
 
 _FIELDS = len(render_mod.RenderOutputs._fields)
@@ -318,8 +319,7 @@ class RenderGraphs:
 
     @staticmethod
     def _count(entry: _Entry) -> None:
-        fetch_windows.add_launches(entry.launches.get("fetch_interp", 0))
-        mixdown.add_launches(entry.launches.get("lane_mixdown", 0))
+        launch_tally.add(entry.launches)
 
     def _capture(self, key: GraphKey, fn, prog: np.ndarray):
         """Capture `fn` at `key` (the capture lock held); returns the

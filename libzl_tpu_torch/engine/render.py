@@ -15,7 +15,12 @@ one-device mesh when it has none. A horizon is H calls of the same per-block
 math, one per slice's program, so each slice is bit-identical to a per-block
 render of that program. Every lane mix here, in a horizon slice and in a
 sharded render is ops/mixdown.lane_mixdown's fold in pool voice order, so
-all of them sum a lane's voices in one order.
+all of them sum a lane's voices in one order; everything after it is
+ops/finish.finish, whose master and RMS sums also run in one spelled-out
+order, so a horizon's slices finished in one call equal per-block finishes.
+On a card the windows render is five hand-written kernels: voice prep,
+the fetch and voice post (ops/voice_render.py) once a block and shard, the
+mixdown once a shard, the finish once a render.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..constants import DEFAULT_BLOCK_FRAMES
-from ..ops import meters as meter_ops
+from ..ops import finish as finish_ops
 from ..ops import mixer as mixer_ops
 from ..ops import voice as voice_ops
 
@@ -47,30 +52,36 @@ class RenderOutputs(NamedTuple):
     voice_peaks: Any   # [V] reference peak metric: max(l+r, 0)
 
 
-def finish_block(lane_mix, strips, voice_peaks) -> RenderOutputs:
+def finish_block(lane_mix, strips: "torch.Tensor | mixer_ops.StripParams",
+                 voice_peaks):
     """Everything downstream of the additive lane mixdown: strips, master,
-    meters."""
-    master_raw = lane_mix.sum(dim=0)  # the JACK system:playback additive sum
+    meters, in one call of ops/finish.finish (the kernel
+    csrc/finish_block.cu on a card, its plain version on the CPU).
 
-    # Channel strips act on sketchpad-channel lanes 2..11; the global strip
-    # acts on the summed master. Stack them so one op applies all 11.
-    strip_in = torch.cat(
-        [master_raw[None], lane_mix[FIRST_CHANNEL_LANE:]], dim=0
-    )
-    dry, wet1, wet2 = mixer_ops.apply_strips(strip_in, strips)
-    master = dry[0]
-
-    return RenderOutputs(
-        master=master,
-        lane_mix=lane_mix,
-        strip_dry=dry,
-        strip_wet1=wet1,
-        strip_wet2=wet2,
-        lane_peaks=meter_ops.block_peaks(lane_mix),
-        lane_rms=meter_ops.block_rms(lane_mix),
-        master_peak=meter_ops.block_peaks(master),
-        voice_peaks=voice_peaks,
-    )
+    lane_mix [12, B, 2] -> one RenderOutputs; a horizon's stacked
+    [H, 12, B, 2] -> a tuple of H, one call for every slice (voice_peaks
+    then holds each slice's peaks: voice_peaks[h]). strips: the packed
+    [5, 11] tensor (ops/voice.pack_strips) or StripParams."""
+    if not isinstance(strips, torch.Tensor):
+        strips = torch.stack(list(strips))
+    stacked = lane_mix.dim() == 4
+    mix = lane_mix if stacked else lane_mix[None]
+    dry, wet1, wet2, lane_peaks, lane_rms, master_peak = finish_ops.finish(
+        mix.contiguous(), strips.contiguous())
+    outs = tuple(
+        RenderOutputs(
+            master=dry[h, 0],
+            lane_mix=mix[h],
+            strip_dry=dry[h],
+            strip_wet1=wet1[h],
+            strip_wet2=wet2[h],
+            lane_peaks=lane_peaks[h],
+            lane_rms=lane_rms[h],
+            master_peak=master_peak[h],
+            voice_peaks=voice_peaks[h] if stacked else voice_peaks,
+        )
+        for h in range(mix.shape[0]))
+    return outs if stacked else outs[0]
 
 
 def pad_voice_peaks(outs, pad_voices_to: int, v_in: int):
@@ -93,7 +104,7 @@ def pad_voice_peaks(outs, pad_voices_to: int, v_in: int):
 def render_block_math(
     sound_data,
     prog: voice_ops.VoiceProgram,
-    strips: mixer_ops.StripParams,
+    strips: "torch.Tensor | mixer_ops.StripParams",
     block_frames: int,
     quirk_gain: bool = False,
     fetch: str = "gather",
@@ -123,9 +134,8 @@ def render_block_fused(
     size when a prefix of the pool is rendered."""
     prog_ints, prog_floats = voice_ops.split_fused(prog_fused)
     prog = voice_ops.unpack_program(prog_ints, prog_floats)
-    strips = voice_ops.unpack_strips(strips_packed)
     out = render_block_math(
-        sound_data, prog, strips, block_frames, quirk_gain=quirk_gain,
+        sound_data, prog, strips_packed, block_frames, quirk_gain=quirk_gain,
         fetch=fetch, max_pitch_ratio=max_pitch_ratio,
     )
     return pad_voice_peaks(out, pad_voices_to, prog_fused.shape[0])
@@ -134,7 +144,7 @@ def render_block_fused(
 def render_horizon_math(
     sound_data,
     progs,                      # sequence of `slices` VoicePrograms
-    strips: mixer_ops.StripParams,
+    strips: "torch.Tensor | mixer_ops.StripParams",
     block_frames: int,
     quirk_gain: bool = False,
     fetch: str = "gather",
@@ -166,14 +176,13 @@ def render_horizon_fused(
     programs concatenated on axis 1, [V, slices*K]. Not the engine's path;
     the explicit-program oracle the compact forms are held against."""
     K = prog_stack.shape[1] // slices
-    strips = voice_ops.unpack_strips(strips_packed)
     progs = [
         voice_ops.unpack_program(
             *voice_ops.split_fused(prog_stack[:, h * K:(h + 1) * K]))
         for h in range(slices)
     ]
     outs = render_horizon_math(
-        sound_data, progs, strips, block_frames, quirk_gain=quirk_gain,
+        sound_data, progs, strips_packed, block_frames, quirk_gain=quirk_gain,
         fetch=fetch, max_pitch_ratio=max_pitch_ratio,
     )
     return pad_voice_peaks(outs, pad_voices_to, prog_stack.shape[0])
@@ -195,9 +204,8 @@ def render_horizon_compact(
     [V, 1+(H-1)*D] (ops/voice.pack_horizon_dynamics), bit-identical to
     render_horizon_fused on the full stacked programs."""
     progs = voice_ops.horizon_programs(base_fused, dyn, slices, block_frames)
-    strips = voice_ops.unpack_strips(strips_packed)
     outs = render_horizon_math(
-        sound_data, progs, strips, block_frames, quirk_gain=quirk_gain,
+        sound_data, progs, strips_packed, block_frames, quirk_gain=quirk_gain,
         fetch=fetch, max_pitch_ratio=max_pitch_ratio,
     )
     return pad_voice_peaks(outs, pad_voices_to, base_fused.shape[0])

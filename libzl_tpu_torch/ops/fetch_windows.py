@@ -16,8 +16,6 @@ Two implementations of one contract (see csrc/fetch_interp.cu):
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ..constants import MAX_PITCH_RATIO, WINDOW_ANCHOR_BLOCK
@@ -174,19 +172,8 @@ def fetch_interp(sound_data, pos_local, alpha, win_blk_a, win_blk_b,
     return out
 
 
-fetch_interp.launches = 0
-# the engine thread and the speculative horizon's dispatch thread both
-# launch the kernel: the read-modify-write of the count takes a lock
-_launches_lock = threading.Lock()
-
-
 def _count_launch() -> None:
-    # a call under a graph capture is counted when the graph replays
-    if not launch_tally.recorded("fetch_interp"):
-        add_launches(1)
+    launch_tally.count("fetch_interp")
 
 
-def add_launches(n: int) -> None:
-    """Count `n` launches: one call, or a replayed graph's recorded ones."""
-    with _launches_lock:
-        fetch_interp.launches += n
+launch_tally.register("fetch_interp", fetch_interp)

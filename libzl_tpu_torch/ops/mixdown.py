@@ -25,8 +25,6 @@ Two implementations of one contract (see csrc/lane_mixdown.cu):
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ..constants import NUM_SAMPLER_CHANNELS
@@ -149,19 +147,8 @@ def launch_kernel(contrib, lane, num_lanes: int = NUM_SAMPLER_CHANNELS,
     return out if stacked else out[0]
 
 
-lane_mixdown.launches = 0
-# the engine thread and the speculative horizon's dispatch thread both
-# launch the kernel: the read-modify-write of the count takes a lock
-_launches_lock = threading.Lock()
-
-
 def _count_launch() -> None:
-    # a call under a graph capture is counted when the graph replays
-    if not launch_tally.recorded("lane_mixdown"):
-        add_launches(1)
+    launch_tally.count("lane_mixdown")
 
 
-def add_launches(n: int) -> None:
-    """Count `n` launches: one call, or a replayed graph's recorded ones."""
-    with _launches_lock:
-        lane_mixdown.launches += n
+launch_tally.register("lane_mixdown", lane_mixdown)

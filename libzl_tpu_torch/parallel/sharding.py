@@ -164,8 +164,9 @@ class ShardedRender:
     - `fold(seg, parts, init)`: the segment's shards' lane mixdowns in
       shard order, the first from `init` (None: zeros);
     - `tail(mix, peaks, rows)`: on the mesh's first device, the lane mix
-      carried over every shard and the segments' peaks -> finish_block,
-      the voice peaks padded to the pool.
+      carried over every shard and the segments' peaks -> finish_block
+      (one call, a horizon's slices stacked), the voice peaks padded to
+      the pool.
 
     Calling it is the eager render (render_block_sharded /
     render_horizon_sharded): `chain` of those steps over segments(mesh)."""
@@ -236,14 +237,11 @@ class ShardedRender:
 
     def tail(self, mix, peaks: list, rows: int):
         with _on(self.mesh.devices[0]):
-            strips = voice_ops.unpack_strips(self.strips_packed)
-            voice_peaks = _join(peaks, 1 if self.slices else 0)
-            if self.slices:
-                outs = tuple(render_mod.finish_block(mix[h], strips,
-                                                     voice_peaks[h])
-                             for h in range(self.slices))
-            else:
-                outs = render_mod.finish_block(mix, strips, voice_peaks)
+            # one finish call a render: a horizon's [H, 12, B, 2] mix
+            # finishes its H slices at once
+            outs = render_mod.finish_block(
+                mix, self.strips_packed,
+                _join(peaks, 1 if self.slices else 0))
         return render_mod.pad_voice_peaks(outs, self.pad_voices_to, rows)
 
     def chain(self, plan: list, rows: list):

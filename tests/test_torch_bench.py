@@ -180,18 +180,24 @@ def test_main_refuses_a_missing_card():
 
 
 def test_capture_calls_restores_the_wrappers_after_a_failure():
-    from libzl_tpu_torch.ops import voice
+    from libzl_tpu_torch.ops import finish, voice
     from libzl_tpu_torch.parallel import sharding
 
-    before = voice.fetch_interp, sharding.lane_mixdown
+    def wrappers():
+        return (voice.fetch_interp, sharding.lane_mixdown, voice.voice_prep,
+                voice.voice_post, finish.finish)
+
+    before = wrappers()
 
     def fails():
         raise ValueError("mid-render")
 
     with pytest.raises(ValueError):
         bench.capture_calls(fails)
-    assert (voice.fetch_interp, sharding.lane_mixdown) == before
-    assert bench.capture_calls(lambda: None) == {"fetch": [], "mixdown": []}
+    assert wrappers() == before
+    assert bench.capture_calls(lambda: None) == {
+        "fetch": [], "mixdown": [], "voice_prep": [], "voice_post": [],
+        "finish": []}
 
 
 def test_mixdown_bound_counts_each_byte_once():

@@ -1,6 +1,7 @@
-"""The port's two kernels (the windows fetch and the in-order lane mixdown),
-their plain PyTorch versions and their build, with no JAX in the file: the
-tests marked `cuda` run on the card with
+"""The port's kernels (the windows fetch, the in-order lane mixdown, the voice
+prep and post around the fetch, and the finish), their plain PyTorch
+versions and their build, with no JAX in the file: the tests marked `cuda`
+run on the card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
@@ -10,7 +11,9 @@ Tier-1. The plain fetch is held against a float64 two-tap oracle with
 hostile positions (atol 3e-6, tests/test_fetch_windows.py:294), out-of-range
 lanes exactly 0; the plain mixdown against a scalar float32 fold, bit for
 bit. On the card each kernel is held against its plain version: the fetch
-at atol 3e-6, the mixdown bit for bit.
+at atol 3e-6, the mixdown, the voice prep and post and the finish bit for
+bit (`hostile_program` draws the voice kernels' programs; the CPU tests of
+their plain versions are in tests/test_torch_voice_kernels.py).
 """
 
 import numpy as np
@@ -19,7 +22,9 @@ import torch
 
 from libzl_tpu_torch import _build
 from libzl_tpu_torch.ops import fetch_windows as fw
+from libzl_tpu_torch.ops import finish as fin
 from libzl_tpu_torch.ops import mixdown as md
+from libzl_tpu_torch.ops import voice_render as vr
 
 
 def hostile_inputs(seed: int, V: int, B: int, n: int, dtype=np.float32,
@@ -678,3 +683,213 @@ def test_mesh_render_graphs_on_card_match_eager(plan):
         e.mesh.size * e.fetch_dispatches["windows"] for e in engines)
     assert md.lane_mixdown.launches - before[1] == sum(
         e.mesh.size * sum(e.render_dispatches.values()) for e in engines)
+
+
+# ------------------------------------- the voice prep, voice post and finish
+
+
+def hostile_program(seed: int, V: int, B: int, W: int = 0):
+    """A port VoiceProgram of numpy arrays that reaches every branch of the
+    voice prep: every ADSR stage and both release modes, releases at and
+    before frame 0, mid-block and past the block, immediate cuts and
+    sub-frame releases, starts and stops mid-block, up to S-1 wrap segments
+    (duplicates included) with and without a loop period, W beat-quantized
+    resets (some at or past B: unused), negative positions, inactive rows,
+    pan at -1, +1 and between."""
+    from libzl_tpu_torch.ops import adsr, voice
+
+    rng = np.random.default_rng(seed)
+    S = voice.MAX_SEGMENTS_PER_BLOCK
+    i32, f32 = np.int32, np.float32
+    start = np.where(rng.random(V) < 0.3, rng.integers(1, B, V), 0)
+    seg_start = np.full((V, S), B)
+    seg_start[:, 0] = start
+    for v in range(V):
+        n = int(rng.integers(0, S))
+        seg_start[v, 1:1 + n] = np.sort(rng.integers(start[v] + 1, B + 1, n))
+    # juce's release rates at 44.1-48 kHz from 10 ms up (the exponential
+    # release's exp2 then spans what a block reaches), none, and a
+    # sub-frame release (exp2(-200) cuts to 0), as adsr.make_rates sets them
+    inv_rel = rng.choice([0.0, 2e-4, 1e-3, 2e-3, 1.5], V)
+    rel_log2 = np.where(inv_rel >= 1, -200.0, np.log2(
+        np.float32(1) - np.minimum(inv_rel, 0.5).astype(np.float32)))
+    release = rng.choice([0, 1, B // 2, B - 1, B + 5, int(voice.RELEASE_NONE),
+                          -1], V)
+    release = np.where(rng.random(V) < 0.4, rng.integers(0, B, V), release)
+    env = adsr.AdsrProgram(
+        stage0=rng.integers(0, 5, V).astype(i32),
+        env0=rng.uniform(0, 1, V).astype(f32),
+        a_rate=np.where(rng.random(V) < 0.2, 0.0,
+                        rng.uniform(0, 0.02, V)).astype(f32),
+        d_rate=np.where(rng.random(V) < 0.2, 0.0,
+                        rng.uniform(0, 0.002, V)).astype(f32),
+        sustain=rng.uniform(0, 1, V).astype(f32),
+        rel_rate=rng.uniform(0, 0.002, V).astype(f32),
+        inv_rel=inv_rel.astype(f32),
+        rel_log2=rel_log2.astype(f32),
+        release_frame=release.astype(i32),
+        rel_mode=rng.integers(0, 2, V).astype(i32),
+    )
+    pan = rng.uniform(-1, 1, V)
+    pan[rng.random(V) < 0.3] = rng.choice([-1.0, 1.0])
+    return voice.VoiceProgram(
+        active=(rng.random(V) < 0.85).astype(i32),
+        base=rng.integers(0, 4096, V).astype(i32),
+        len_minus1=rng.integers(1, 40000, V).astype(i32),
+        win_blk_a=rng.integers(0, 64, V).astype(i32),
+        win_blk_b=rng.integers(0, 64, V).astype(i32),
+        seg_start=seg_start.astype(i32),
+        seg_pos_int=rng.integers(-40, 30000, (V, S)).astype(i32),
+        seg_pos_frac=rng.random((V, S)).astype(f32),
+        rate_int=rng.integers(0, 4, V).astype(i32),
+        rate_frac=rng.random(V).astype(f32),
+        start_frame=start.astype(i32),
+        stop_frame=np.where(rng.random(V) < 0.3, rng.integers(1, B + 1, V),
+                            B).astype(i32),
+        gain=rng.uniform(0, 1, V).astype(f32),
+        clip_volume=rng.uniform(0, 1, V).astype(f32),
+        pan=pan.astype(f32),
+        lane=rng.integers(0, 12, V).astype(i32),
+        loop_period=np.where(rng.random(V) < 0.5, rng.integers(20, 400, V),
+                             0).astype(i32),
+        bq_reset=np.minimum(np.sort(rng.integers(0, B + B // 2, (V, W)),
+                                    axis=1), B).astype(i32),
+        env=env,
+    )
+
+
+def device_program(prog, device="cpu"):
+    """The program as the engine's render sees a block's: packed, fused,
+    on `device`, split back into strided column views."""
+    from libzl_tpu_torch.ops import voice
+
+    fused = torch.from_numpy(voice.fuse_packed(*voice.pack_program(prog)))
+    return voice.unpack_program(*voice.split_fused(fused.to(device)))
+
+
+def own_columns(prog):
+    """The program with every column a tensor of its own (a horizon slice's
+    layout): contiguous copies of the strided views."""
+    return prog._replace(
+        env=prog.env._replace(**{n: getattr(prog.env, n).contiguous()
+                                 for n in prog.env._fields}),
+        **{n: getattr(prog, n).contiguous() for n in prog._fields
+           if n != "env"})
+
+
+def post_inputs(seed: int, V: int, B: int, device="cpu"):
+    """interp [V, 2, B], g [V, B] (zeros and negatives mixed in), valid
+    [V, B] and a strided pan column with -1 and +1 in it."""
+    rng = np.random.default_rng(seed)
+    interp = rng.standard_normal((V, 2, B)).astype(np.float32)
+    g = rng.standard_normal((V, B)).astype(np.float32)
+    g[rng.random((V, B)) < 0.1] = 0.0
+    valid = rng.random((V, B)) < 0.8
+    cols = rng.uniform(-1, 1, (V, 7)).astype(np.float32)
+    cols[::5, 3] = 1.0
+    cols[1::5, 3] = -1.0
+    t = [torch.from_numpy(a).to(device) for a in (interp, g, valid, cols)]
+    return t[0], t[1], t[2], t[3][:, 3]
+
+
+def finish_inputs(seed: int, H: int, B: int, device="cpu"):
+    """A stacked lane mix [H, 12, B, 2] with exact zeros and -0.0 mixed in,
+    and packed strips [5, 11] with muted strips and pans at -1 and +1."""
+    rng = np.random.default_rng(seed)
+    mix = (rng.standard_normal((H, 12, B, 2)) * 0.3).astype(np.float32)
+    mix[rng.random(mix.shape) < 0.05] = 0.0
+    mix[rng.random(mix.shape) < 0.05] = -0.0
+    strips = np.stack([
+        rng.uniform(0, 1.2, 11), rng.uniform(0, 1, 11), rng.uniform(0, 1, 11),
+        np.concatenate([[-1.0, 1.0], rng.uniform(-1, 1, 9)]),
+        (rng.random(11) < 0.2).astype(np.float64)]).astype(np.float32)
+    return (torch.from_numpy(mix).to(device),
+            torch.from_numpy(strips).to(device))
+
+
+# (V, B): one voice, a ragged B under and over one CTA row, B over a CTA's
+# 256 threads but not a multiple of them, the engine's geometries
+VOICE_SHAPES = [(1, 64), (1, 1024), (1000, 130), (1024, 128), (1000, 1000),
+                (1024, 1024)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B", VOICE_SHAPES)
+@pytest.mark.parametrize("W", [0, 3])
+def test_voice_prep_kernel_matches_plain_on_card(V, B, W):
+    """Every output torch.equal to the plain version, from the block's
+    strided columns and from a horizon slice's own tensors."""
+    _need_card()
+    prog = device_program(hostile_program(21 + W, V, B, W), "cuda")
+    before = vr.voice_prep.launches
+    got = vr.voice_prep(prog, B)
+    want = vr.voice_prep_plain(prog, B)
+    again = vr.voice_prep(own_columns(prog), B)
+    torch.cuda.synchronize()
+    assert vr.voice_prep.launches == before + 2
+    for name, a, b, c in zip(("pos_local", "alpha", "g", "valid"), got, want,
+                             again):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert torch.equal(c, b), f"{name} from own columns"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B", VOICE_SHAPES)
+def test_voice_post_kernel_matches_plain_on_card(V, B):
+    """Contributions and peaks torch.equal to the plain version, also
+    written into a slice of a stacked buffer."""
+    _need_card()
+    args = post_inputs(31, V, B, "cuda")
+    before = vr.voice_post.launches
+    peak, contrib = vr.voice_post(*args)
+    want_peak, want = vr.voice_post_plain(*args)
+    buf = torch.full((3, V, B, 2), 7.0, device="cuda")
+    peak2, into = vr.voice_post(*args, out=buf[1])
+    torch.cuda.synchronize()
+    assert vr.voice_post.launches == before + 2
+    assert torch.equal(contrib, want) and torch.equal(peak, want_peak)
+    assert into.data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1], want) and torch.equal(peak2, want_peak)
+    assert (buf[0] == 7.0).all() and (buf[2] == 7.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,B", [(1, 64), (1, 130), (1, 1000), (1, 1024),
+                                 (16, 128), (16, 130), (2, 4096)])
+def test_finish_kernel_matches_plain_on_card(H, B):
+    """Strips, peaks, RMS and master peak torch.equal to the plain version
+    (the master chain and the RMS tree in the spelled order)."""
+    _need_card()
+    mix, strips = finish_inputs(41, H, B, "cuda")
+    before = fin.finish.launches
+    got = fin.finish(mix, strips)
+    want = fin.finish_plain(mix, strips)
+    torch.cuda.synchronize()
+    assert fin.finish.launches == before + 1
+    names = ("dry", "wet1", "wet2", "lane_peaks", "lane_rms", "master_peak")
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_voice_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    prog = device_program(hostile_program(5, 8, 128), "cuda")
+    with pytest.raises(ValueError):
+        vr.voice_prep(prog._replace(gain=prog.gain.to(torch.float64)), 128)
+    interp, g, valid, pan = post_inputs(6, 8, 128, "cuda")
+    with pytest.raises(ValueError):
+        vr.voice_post(interp.transpose(0, 2).contiguous().transpose(0, 2),
+                      g, valid, pan)
+    with pytest.raises(ValueError):
+        vr.voice_post(interp, g, valid.to(torch.uint8), pan)
+    mix, strips = finish_inputs(7, 2, 128, "cuda")
+    with pytest.raises(ValueError):
+        fin.finish(mix[:, :, ::2], strips)
+    with pytest.raises(ValueError):
+        fin.finish(mix, strips[:, :10])
