@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (libzl_tpu_torch) end to end on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--compare NAME=PATH.cu[,NVCC_FLAG...]] ...
+    python3 chip_smoke.py [--compare|--version NAME=PATH.cu[,NVCC_FLAG...]]
                           [--soak-seconds S] [--soak-event-seconds S]
     python3 chip_smoke.py --mesh-cards-only   # phases 1, 2, 13 across cards
     python3 chip_smoke.py --mesh-only         # phases 1, 2, 13
@@ -30,16 +30,20 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    versions, torch.equal: the prep on hostile programs (every ADSR stage
    and release mode, releases, starts and stops mid-block, wrap segments
    with loop periods, beat-quantized resets, inactive rows, pan at +-1) at
-   (V, B) = (1024, 128) and (1024, 1024), from strided and from own
-   columns; the post on the fetch's taps of those programs, also into a
-   stacked slice; the finish on one block's and a stacked H=16 horizon's
-   lane mix at both B;
+   (V, B) = (1024, 128) and (1024, 1024), (1000, 130) and (64, 10240) with
+   67 resets, from strided and from own columns and as slices 1 and H-1 of
+   hostile H=2 and H=16 horizons read from their compact dynamics (against
+   unpack_horizon_slice + the plain prep), anchors included; the post on
+   the fetch's taps of those programs, also into a stacked slice and an
+   8-byte aligned view; the finish on one block's and a stacked H=16
+   horizon's lane mix at B=128 and 1024, at B=16512 (H=1, 2) and 40000;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
    "cuda" (fetch resolves to the windows kernel) and on "cpu" (the plain
-   gather path): 8 superblocks (B=1024), then 16 live blocks (B=128),
-   every block compared (voice_peaks atol 2e-6; lane_mix and master rtol
+   gather path): 8 superblocks (B=1024), 16 live blocks (B=128), then 3
+   blocks of 64 voices at B=10240 (67 beat-quantized reset columns), every
+   block compared (voice_peaks atol 2e-6; lane_mix and master rtol
    1e-5, atol 2e-6 x voices in the densest lane); the voice prep, fetch
    and voice post kernels' launch counts must equal the dispatched blocks,
    the mixdown's and the finish's the engines' renders, and no block may
@@ -62,9 +66,10 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    the one-hot torch.matmul it replaces and an empty kernel on its grid, on
    the session's last per-block contributions at B=1024 and B=128 and on a
    stacked H=16 horizon at B=128, each beside its bound; the voice prep,
-   voice post and finish kernels and their plain versions on the session's
-   last per-block dispatch at B=1024 and B=128 and the finish on a stacked
-   H=16 horizon, each beside its bound;
+   voice post and finish kernels, their plain versions and any --compare
+   source of them on the session's last per-block dispatch at B=1024 and
+   B=128, the voice prep on slice 1 of a horizon over that program and the
+   finish on a stacked H=16 horizon, each beside its bound;
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -166,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -203,6 +209,11 @@ SUPER_BLOCK = 1024
 LIVE_BLOCK = 128
 SLICE_SUPER_BLOCKS = 8
 SLICE_LIVE_BLOCKS = 16
+# phase 4's large block: B=10240 takes W = 67 beat-quantized resets a voice
+# at 48 kHz (constants.bq_extra_resets), past the 64 of the first voice prep
+LARGE_BLOCK = 10240
+LARGE_VOICES = 64
+LARGE_BLOCKS = 3
 # phases 4 and 5 drive the per-block engine (their figures stay comparable
 # with the per-block records in PERF.md); phase 6 the default options
 PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
@@ -377,8 +388,11 @@ def phase_build() -> None:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.build_seconds:.2f} s) -> {so.name}")
+    # ptxas -v: each kernel's name, then its stack and spills, then its
+    # registers
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Function properties", "registers",
+                                   "spill")):
             print(f"  ptxas: {line.strip()}")
     torch.cuda.synchronize()
 
@@ -699,6 +713,48 @@ def own_columns(prog):
            if n != "env"})
 
 
+def render_dynamics(rng, V: int, B: int, H: int, W: int, device):
+    """Compact horizon dynamics [V, 1+(H-1)*D] int32 on `device`, in
+    ops/voice.pack_horizon_dynamics' layout, that reach every branch of a
+    slice's unpack (tests/test_torch_kernels.hostile_dynamics' kinds):
+    negative positions, wraps in and past the block, stops mid-block,
+    releases at 0, mid-block and none (0xFFFF), every stage and release
+    mode, inactive rows, W 16-bit resets in and past the block."""
+    from libzl_tpu_torch.ops import voice
+
+    def pack16(lo, hi):
+        return ((np.asarray(hi, np.uint32) << 16)
+                | np.asarray(lo, np.uint32)).view(np.int32)
+
+    S = voice.MAX_SEGMENTS_PER_BLOCK
+    npack, D = (S + 1) // 2, voice.horizon_dyn_cols(W)
+    dyn = np.zeros((V, 1 + (H - 1) * D), np.int32)
+    bits = dyn.view(np.float32)
+    dyn[:, 0] = rng.integers(0, 30000, V)
+    for t in range(H - 1):
+        off = 1 + t * D
+        dyn[:, off] = rng.integers(-3000, 30000, V)
+        bits[:, off + 1:off + 4] = rng.random((V, 3)) * [1.0, 1.0, 0.002]
+        fields = np.concatenate([
+            np.sort(rng.integers(1, B + B // 4 + 2, (V, S - 1)), axis=1),
+            np.where(rng.random((V, 1)) < 0.3,
+                     rng.integers(1, B + 1, (V, 1)), B),
+            np.zeros((V, S % 2), np.int64)], axis=1)
+        dyn[:, off + 4:off + 4 + npack] = pack16(fields[:, 0::2],
+                                                 fields[:, 1::2])
+        rf = np.where(rng.random(V) < 0.4, rng.integers(0, B, V),
+                      rng.choice([0, 1, B // 2, B - 1, 0xFFFF], V))
+        dyn[:, off + 4 + npack] = (
+            rf | (rng.random(V) < 0.85) << 16
+            | rng.integers(0, 5, V) << 17 | rng.integers(0, 2, V) << 20)
+        resets = np.concatenate([
+            np.minimum(np.sort(rng.integers(0, B + B // 2, (V, W)), axis=1),
+                       0xFFFF), np.zeros((V, W % 2), np.int64)], axis=1)
+        dyn[:, off + 5 + npack:off + D] = pack16(resets[:, 0::2],
+                                                 resets[:, 1::2])
+    return torch.from_numpy(dyn).to(device)
+
+
 def finish_inputs(rng, H: int, B: int, device):
     """A lane mix [H, 12, B, 2] with exact zeros and -0.0 mixed in, and
     packed strips [5, 11] with muted strips and pans at -1 and +1."""
@@ -717,15 +773,33 @@ def _diff(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
+# (V, B, W) of phase 3's voice kernels: the main path's shapes, a ragged B,
+# and B=10240 with W = 67 resets (48 kHz: constants.bq_extra_resets)
+RENDER_CASES = ((NUM_VOICES, LIVE_BLOCK, 0), (NUM_VOICES, LIVE_BLOCK, 3),
+                (NUM_VOICES, SUPER_BLOCK, 0), (NUM_VOICES, SUPER_BLOCK, 3),
+                (1000, 130, 3), (LARGE_VOICES, LARGE_BLOCK, 67))
+PREP_OUTPUTS = ("pos_local", "alpha", "g", "valid", "win_a", "win_b")
+
+
+def _check_prep(got, want, label: str) -> float:
+    err = max(_diff(a, b) for a, b in zip(got, want))
+    for name, a, b in zip(PREP_OUTPUTS, got, want):
+        check(torch.equal(a, b) and a.is_contiguous(),
+              f"voice_prep {name} differs from plain ({label}): {err:.3e}")
+    return err
+
+
 def phase_render_kernels(device) -> dict:
     """The voice prep, voice post and finish kernels against their plain
     versions on the card, torch.equal: the prep on hostile programs at
-    (V, B) = (1024, 128) and (1024, 1024), W = 0 and 3, from a block's
-    strided columns and from a horizon slice's own tensors; the post on the
-    fetch kernel's taps and the prep's gain and mask of those programs (pan
-    a strided column), also into a slice of a stacked buffer; the finish on
-    one block's and a stacked H=16 horizon's lane mix at B=128 and B=1024.
-    Returns each kernel's max abs error (0)."""
+    RENDER_CASES, from a block's strided columns and from own tensors, and
+    slices 1 and H-1 of hostile H=2 and H=16 horizons from their compact
+    dynamics (unpack_horizon_slice + the plain prep); the post on the fetch
+    kernel's taps of those programs (pan a strided column), also into a
+    slice of a stacked buffer and into an 8-byte aligned view; the finish on
+    one block's and a stacked horizon's lane mix at B=128, 1024 and 16512
+    (each lane's tree split over CTAs) and one block at B=40000. Returns
+    each kernel's max abs error (0)."""
     from libzl_tpu_torch.ops import fetch_windows as fw
     from libzl_tpu_torch.ops import finish as fin
     from libzl_tpu_torch.ops import voice_render as vr
@@ -734,57 +808,64 @@ def phase_render_kernels(device) -> dict:
     sound = torch.from_numpy((rng.standard_normal((2, 1 << 20)) * 0.3)
                              .astype(np.float32)).to(device)
     worst = dict.fromkeys(RENDER_KERNELS, 0.0)
-    names = ("pos_local", "alpha", "g", "valid")
-    for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
-        for W in (0, 3):
-            prog = render_program(rng, V, B, W, device)
-            got = vr.voice_prep(prog, B)
-            want = vr.voice_prep_plain(prog, B)
-            own = vr.voice_prep(own_columns(prog), B)
-            torch.cuda.synchronize()
-            for name, a, b, c in zip(names, got, want, own):
-                err = max(_diff(a, b), _diff(c, b))
-                check(torch.equal(a, b) and torch.equal(c, b),
-                      f"voice_prep {name} differs from plain at V={V} B={B} "
-                      f"W={W}: {err:.3e}")
-                worst["voice_prep"] = max(worst["voice_prep"], err)
-            exp_rows = prog.env.rel_mode == 1
-            interp = fw.fetch_interp(sound, got[0], got[1],
-                                     prog.win_blk_a.contiguous(),
-                                     prog.win_blk_b.contiguous())
-            args = (interp, got[2], got[3], prog.pan)
-            peak, contrib = vr.voice_post(*args)
-            want_peak, want_contrib = vr.voice_post_plain(*args)
-            buf = torch.full((3, V, B, 2), 7.0, device=device)
-            peak2, _ = vr.voice_post(*args, out=buf[1])
-            torch.cuda.synchronize()
-            err = max(_diff(contrib, want_contrib), _diff(peak, want_peak))
-            check(torch.equal(contrib, want_contrib)
-                  and torch.equal(peak, want_peak)
-                  and torch.equal(buf[1], want_contrib)
-                  and torch.equal(peak2, want_peak)
-                  and bool((buf[0] == 7.0).all() and (buf[2] == 7.0).all()),
-                  f"voice_post differs from plain at V={V} B={B} W={W}: "
-                  f"{err:.3e}")
-            worst["voice_post"] = max(worst["voice_post"], err)
-            check(bool(torch.isfinite(contrib).all()), "non-finite contrib")
-            print(f"voice kernels V={V} B={B} W={W}: prep torch.equal to "
-                  f"plain (strided and own columns; valid frames "
-                  f"{int(got[3].sum())} of {V * B}, exponential-release "
-                  f"voices {int(exp_rows.sum())}), post torch.equal (also "
-                  f"into a stacked slice; peak max {float(peak.max()):.4f})")
-    for B in (LIVE_BLOCK, SUPER_BLOCK):
-        for H in (1, 16):
-            mix, strips = finish_inputs(rng, H, B, device)
-            got = fin.finish(mix, strips)
-            want = fin.finish_plain(mix, strips)
-            torch.cuda.synchronize()
-            err = max(_diff(a, b) for a, b in zip(got, want))
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"finish differs from plain at H={H} B={B}: {err:.3e}")
-            worst["finish_block"] = max(worst["finish_block"], err)
-            print(f"finish H={H} B={B}: strips, peaks, RMS and master peak "
-                  f"torch.equal to plain")
+    for V, B, W in RENDER_CASES:
+        prog = render_program(rng, V, B, W, device)
+        got = vr.voice_prep(prog, B)
+        want = vr.voice_prep_plain(prog, B)
+        err = max(_check_prep(got, want, f"V={V} B={B} W={W} strided"),
+                  _check_prep(vr.voice_prep(own_columns(prog), B), want,
+                              f"V={V} B={B} W={W} own"))
+        for H in (2, 16):
+            dyn = render_dynamics(rng, V, B, H, W, device)
+            for h in sorted({1, H - 1}):
+                err = max(err, _check_prep(
+                    vr.voice_prep_slice(prog, dyn, h, B),
+                    vr.voice_prep_slice_plain(prog, dyn, h, B),
+                    f"V={V} B={B} W={W} slice {h} of {H}"))
+        torch.cuda.synchronize()
+        worst["voice_prep"] = max(worst["voice_prep"], err)
+        exp_rows = prog.env.rel_mode == 1
+        interp = fw.fetch_interp(sound, got[0], got[1], got[4], got[5])
+        args = (interp, got[2], got[3], prog.pan)
+        peak, contrib = vr.voice_post(*args)
+        want_peak, want_contrib = vr.voice_post_plain(*args)
+        buf = torch.full((3, V, B, 2), 7.0, device=device)
+        peak2, _ = vr.voice_post(*args, out=buf[1])
+        flat = torch.full((2 + V * B * 2,), 7.0, device=device)
+        peak3, _ = vr.voice_post(*args, out=flat[2:].view(V, B, 2))
+        torch.cuda.synchronize()
+        err = max(_diff(contrib, want_contrib), _diff(peak, want_peak))
+        check(flat[2:].data_ptr() % 16 == 8, "the view is 16-byte aligned")
+        check(torch.equal(contrib, want_contrib)
+              and torch.equal(peak, want_peak)
+              and torch.equal(buf[1], want_contrib)
+              and torch.equal(peak2, want_peak)
+              and torch.equal(flat[2:].view(V, B, 2), want_contrib)
+              and torch.equal(peak3, want_peak)
+              and bool((buf[0] == 7.0).all() and (buf[2] == 7.0).all()
+                       and (flat[:2] == 7.0).all()),
+              f"voice_post differs from plain at V={V} B={B} W={W}: "
+              f"{err:.3e}")
+        worst["voice_post"] = max(worst["voice_post"], err)
+        check(bool(torch.isfinite(contrib).all()), "non-finite contrib")
+        print(f"voice kernels V={V} B={B} W={W}: prep torch.equal to plain "
+              f"(strided and own columns, slices 1 and H-1 of H=2 and 16; "
+              f"valid frames {int(got[3].sum())} of {V * B}, "
+              f"exponential-release voices {int(exp_rows.sum())}), post "
+              f"torch.equal (also into a stacked slice and an 8-byte "
+              f"aligned view; peak max {float(peak.max()):.4f})")
+    for H, B in ((1, LIVE_BLOCK), (16, LIVE_BLOCK), (1, SUPER_BLOCK),
+                 (16, SUPER_BLOCK), (1, 16512), (2, 16512), (1, 40000)):
+        mix, strips = finish_inputs(rng, H, B, device)
+        got = fin.finish(mix, strips)
+        want = fin.finish_plain(mix, strips)
+        torch.cuda.synchronize()
+        err = max(_diff(a, b) for a, b in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"finish differs from plain at H={H} B={B}: {err:.3e}")
+        worst["finish_block"] = max(worst["finish_block"], err)
+        print(f"finish H={H} B={B}: strips, peaks, RMS and master peak "
+              f"torch.equal to plain")
     return worst
 
 
@@ -830,16 +911,17 @@ def phase_slice(device) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     pairs = []
-    for B, n in ((SUPER_BLOCK, SLICE_SUPER_BLOCKS),
-                 (LIVE_BLOCK, SLICE_LIVE_BLOCKS)):
+    for B, n, V in ((SUPER_BLOCK, SLICE_SUPER_BLOCKS, NUM_VOICES),
+                    (LIVE_BLOCK, SLICE_LIVE_BLOCKS, NUM_VOICES),
+                    (LARGE_BLOCK, LARGE_BLOCKS, LARGE_VOICES)):
         gpu = AudioEngine(device, sample_rate=SAMPLE_RATE, block_frames=B,
-                          num_voices=NUM_VOICES, **PER_BLOCK)
+                          num_voices=V, **PER_BLOCK)
         cpu = AudioEngine("cpu", sample_rate=SAMPLE_RATE, block_frames=B,
-                          num_voices=NUM_VOICES, **PER_BLOCK)
+                          num_voices=V, **PER_BLOCK)
         check(gpu.fetch == "windows" and cpu.fetch == "gather",
               f"fetch resolved to {gpu.fetch}/{cpu.fetch}")
-        build_session(gpu)
-        build_session(cpu)
+        build_session(gpu, num_voices=V)
+        build_session(cpu, num_voices=V)
         gpu.warmup()
         pairs.append((B, n, gpu, cpu))
     torch.cuda.synchronize()
@@ -851,7 +933,8 @@ def phase_slice(device) -> dict:
         t0 = time.perf_counter()
         worst = _compare_blocks(gpu, cpu, n, f"B={B}")
         print(f"slice B={B}: {n} blocks, active voices "
-              f"{int(gpu.pool.active.sum())}, densest lane "
+              f"{int(gpu.pool.active.sum())}, beat-quantized reset columns "
+              f"{gpu.pool.n_bq_extra}, densest lane "
               f"{_densest_lane(gpu)}, max err "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
               + f" ({time.perf_counter() - t0:.1f} s)")
@@ -863,7 +946,7 @@ def phase_slice(device) -> dict:
     print(f"slice: kernel launches {json.dumps(launches)}, dispatched blocks "
           f"windows {windows} gather {gather}, renders {renders(gpus)}")
     check(gather == 0, "a block fell back to the gather fetch")
-    check(windows == SLICE_SUPER_BLOCKS + SLICE_LIVE_BLOCKS,
+    check(windows == SLICE_SUPER_BLOCKS + SLICE_LIVE_BLOCKS + LARGE_BLOCKS,
           f"{windows} dispatched blocks, expected every block")
     check_launches(launches, windows, gpus, "slice")
     return launches
@@ -1045,61 +1128,82 @@ def capture_dispatch(engine) -> dict:
     return calls
 
 
-def time_render_kernels(device, card: str, res: dict,
-                        session: dict) -> None:
-    """The voice prep, voice post and finish kernels and their plain
-    versions in turns (kernel, plain, plain, kernel; p50 of 50 CUDA-event
-    timings each, L2 flushed, queued behind a spin) on the session's last
-    per-block dispatch at B=1024 and B=128 (`session`: capture_dispatch's
-    record by B), and the finish on a stacked H=16 horizon at B=128; each
-    beside its bound (utils/roofline). Keys `<name>_{kernel,plain,bound}_ms_
-    <case>` and `<name>_bound_by_<case>`."""
+def time_render_kernels(device, card: str, res: dict, session: dict,
+                        versions: dict) -> None:
+    """The voice prep, voice post and finish kernels, their plain versions
+    and the --compare sources of each (`versions`: {kernel: {name: fn}})
+    in turns (each, then each in reverse; p50 of 50 CUDA-event timings each,
+    L2 flushed, queued behind a spin) on the session's last per-block
+    dispatch at B=1024 and B=128 (`session`: capture_dispatch's record by
+    B); the voice prep also on slice 1 of a horizon over that program (an
+    H=2 dynamics of render_dynamics' draws; no --compare source before this
+    one reads slices), and the finish on a stacked H=16 horizon at B=128;
+    each beside its bound (utils/roofline). Keys `<name>_{kernel,plain,
+    bound}_ms_<case>`, `<name>_<version>_ms_<case>` and
+    `<name>_bound_by_<case>`."""
     from libzl_tpu_torch.ops import finish as fin
     from libzl_tpu_torch.ops import voice_render as vr
     from libzl_tpu_torch.utils import roofline as rl
 
-    cases = {}
+    rng = np.random.default_rng(98)
+    cases = {}   # (name, key) -> (kernel, plain, bound, versions' args)
     for B, calls in session.items():
         key = f"{NUM_VOICES}x{B}_session"
-        (prog, b, ratio), = calls["voice_prep"]
+        prep, = calls["voice_prep"]
         post, = calls["voice_post"]
-        mix, strips = calls["finish"][0]
+        fin_args, = calls["finish"]
         cases[("voice_prep", key)] = (
-            lambda prog=prog, b=b, ratio=ratio: vr.voice_prep(prog, b, ratio),
-            lambda prog=prog, b=b, ratio=ratio: vr.voice_prep_plain(
-                prog, b, ratio),
-            rl.voice_prep_bound(prog, b))
+            lambda prep=prep: vr.voice_prep(*prep),
+            lambda prep=prep: vr.voice_prep_plain(*prep),
+            rl.voice_prep_bound(*prep[:2]), prep)
+        prog, b, ratio = prep
+        sl = (prog, render_dynamics(rng, NUM_VOICES, b, 2,
+                                    prog.bq_reset.shape[1], device), 1, b,
+              ratio)
+        cases[("voice_prep", key + "_slice")] = (
+            lambda sl=sl: vr.voice_prep_slice(*sl),
+            lambda sl=sl: vr.voice_prep_slice_plain(*sl),
+            rl.voice_prep_slice_bound(*sl[:4]), None)
         cases[("voice_post", key)] = (
             lambda post=post: vr.voice_post(*post),
             lambda post=post: vr.voice_post_plain(*post),
-            rl.voice_post_bound(*post))
+            rl.voice_post_bound(*post), post)
         cases[("finish_block", key)] = (
-            lambda mix=mix, strips=strips: fin.finish(mix, strips),
-            lambda mix=mix, strips=strips: fin.finish_plain(mix, strips),
-            rl.finish_bound(mix, strips))
-    mix, strips = finish_inputs(np.random.default_rng(98), 16, LIVE_BLOCK,
-                                device)
+            lambda f=fin_args: fin.finish(*f),
+            lambda f=fin_args: fin.finish_plain(*f),
+            rl.finish_bound(*fin_args), fin_args)
+    mix, strips = finish_inputs(rng, 16, LIVE_BLOCK, device)
     cases[("finish_block", f"16x{LIVE_BLOCK}_horizon")] = (
         lambda: fin.finish(mix, strips), lambda: fin.finish_plain(mix, strips),
-        rl.finish_bound(mix, strips))
-    for (name, key), (kernel, plain, bound) in cases.items():
+        rl.finish_bound(mix, strips), (mix, strips))
+    for (name, key), (kernel, plain, bound, args) in cases.items():
         fns = {"kernel": kernel, "plain": plain}
+        want = plain()
+        for vname, fn in (versions.get(name, {}) if args else {}).items():
+            fns[vname] = lambda fn=fn, args=args: fn(*args)
+            got = fns[vname]()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{name} {key}: version {vname} differs from plain")
         for f in fns.values():
             for _ in range(5):
                 f()
-        samples = {"kernel": [], "plain": []}
-        for which in ("kernel", "plain", "plain", "kernel"):
-            samples[which] += _events_ms(fns[which], 25, True)
-        ms = {which: float(np.median(v)) for which, v in samples.items()}
-        res[f"{name}_kernel_ms_{key}"] = ms["kernel"]
-        res[f"{name}_plain_ms_{key}"] = ms["plain"]
+        names = list(fns)
+        samples = {n: [] for n in names}
+        for n in names + names[::-1]:
+            samples[n] += _events_ms(fns[n], 25, True)
+        ms = {n: float(np.median(v)) for n, v in samples.items()}
+        for n in names:
+            res[f"{name}_{n}_ms_{key}"] = ms[n]
         res[f"{name}_bound_ms_{key}"] = bound["bound_ms"]
         res[f"{name}_bound_by_{key}"] = bound["bound_by"]
-        print(f"[{card}] {name} {key}: kernel {ms['kernel']:.4f} ms, plain "
-              f"{ms['plain']:.4f} ms (p50 of 50 CUDA-event timings each, in "
-              f"turns); bound {bound['bound_ms']:.5f} ms ({bound['bytes']} "
-              f"bytes, {bound['bound_by']}): the kernel reaches "
-              f"{100 * bound['bound_ms'] / ms['kernel']:.1f}% of it")
+        print(f"[{card}] {name} {key}: "
+              + ", ".join(f"{n} {ms[n]:.4f} ms" for n in names)
+              + f" (p50 of 50 CUDA-event timings each, in turns); bound "
+              f"{bound['bound_ms']:.5f} ms ({bound['bytes']} bytes, "
+              f"{bound['bound_by']}): the kernel reaches "
+              f"{100 * bound['bound_ms'] / ms['kernel']:.1f}% of it"
+              + "".join(f", {n} {100 * bound['bound_ms'] / ms[n]:.1f}%"
+                        for n in names[2:]))
 
 
 def time_mixdown(card: str, res: dict, key: str, contrib, lane,
@@ -1188,15 +1292,93 @@ def time_mixdowns(device, card: str, res: dict, session_mix: dict,
                  lane, versions)
 
 
+def _version_render(name: str, lib):
+    """(kind, launcher) for a source of the voice prep, voice post or finish
+    (this commit's or an earlier one's C entry points), or None: a function
+    with the wrapper's arguments that launches it, counting nothing."""
+    from libzl_tpu_torch import _build
+    from libzl_tpu_torch.ops import voice_render as vr
+    from libzl_tpu_torch.ops.fetch_windows import region_rows
+
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def done(code, what):
+        # the kernels' library names the error (a single source has no
+        # zl_cuda_error_string of its own)
+        _build.check(_build.load(), code, f"{what} version {name}")
+
+    if hasattr(lib, "zl_voice_prep"):
+        # since the slice source: the window anchors among the outputs
+        n_out = 6 if hasattr(lib, "zl_voice_prep_slice") else 4
+        lib.zl_voice_prep.argtypes = [ptr, i64, i64, *[ptr] * n_out, i64,
+                                      i64, i64, ptr]
+
+        def prep(prog, B, max_pitch_ratio=4.0):
+            cols, S, W = vr.prep_columns(prog)
+            V, dev = prog.active.shape[0], prog.active.device
+            out = [torch.empty((V, B), dtype=t, device=dev)
+                   for t in (torch.int32, torch.float32, torch.float32,
+                             torch.bool)]
+            out += [torch.empty((V,), dtype=torch.int32, device=dev)
+                    for _ in range(n_out - 4)]
+            done(lib.zl_voice_prep(ctypes.byref(cols), S, W,
+                                   *(t.data_ptr() for t in out), V, B,
+                                   region_rows(B, max_pitch_ratio),
+                                   stream()), "voice_prep")
+            return tuple(out)
+
+        return "voice_prep", prep
+    if hasattr(lib, "zl_voice_post"):
+        lib.zl_voice_post.argtypes = [ptr, ptr, ptr, ptr, i64, ptr, ptr, i64,
+                                      i64, ptr]
+
+        def post(interp, g, valid, pan, out=None):
+            V, B = interp.shape[0], interp.shape[2]
+            if out is None:
+                out = torch.empty((V, B, 2), device=interp.device)
+            peak = torch.empty((V,), device=interp.device)
+            done(lib.zl_voice_post(
+                interp.data_ptr(), g.data_ptr(), valid.data_ptr(),
+                pan.data_ptr(), pan.stride(0), out.data_ptr(),
+                peak.data_ptr(), V, B, stream()), "voice_post")
+            return peak, out
+
+        return "voice_post", post
+    if hasattr(lib, "zl_finish_block"):
+        # since the split tree: the scratch before H
+        split = hasattr(lib, "zl_finish_block_scratch")
+        lib.zl_finish_block.argtypes = [ptr] * (6 if split else 5) + [
+            i64, i64, i64, ptr]
+        if split:
+            lib.zl_finish_block_scratch.argtypes = [i64, i64, i64]
+            lib.zl_finish_block_scratch.restype = i64
+
+        def finish(mix, strips):
+            H, L, B = mix.shape[:3]
+            out = torch.empty((3, H, L - 1, B, 2), device=mix.device)
+            meters = torch.empty((2, H, L, 2), device=mix.device)
+            peak = torch.empty((H, 2), device=mix.device)
+            scratch = ([torch.empty(
+                (max(lib.zl_finish_block_scratch(H, L, B), 1),),
+                device=mix.device).data_ptr()] if split else [])
+            done(lib.zl_finish_block(
+                mix.data_ptr(), strips.data_ptr(), out.data_ptr(),
+                meters.data_ptr(), peak.data_ptr(), *scratch, H, L, B,
+                stream()), "finish_block")
+            return out[0], out[1], out[2], meters[0], meters[1], peak
+
+        return "finish_block", finish
+    return None
+
+
 def load_version(spec: str) -> tuple:
     """`name=path.cu[,nvcc flag,...]`: another source of one of the kernels
     (a parent commit's copy, say), built with the port's nvcc flags plus the
     given ones into build/libzl_tpu_torch/versions/. Returns (name, which
-    kernel its C entry points are: "fetch" or "mixdown", a function with
-    fetch_interp's or lane_mixdown's arguments that launches it, counting
-    nothing)."""
-    import ctypes
-
+    kernel its C entry points are: "fetch", "mixdown", "voice_prep",
+    "voice_post" or "finish_block", a function with that kernel's wrapper's
+    arguments that launches it, counting nothing)."""
     from libzl_tpu_torch import _build
     from libzl_tpu_torch.ops.fetch_windows import region_rows
 
@@ -1211,6 +1393,9 @@ def load_version(spec: str) -> tuple:
                                      out, str(src)], so, f"nvcc {name}")
     lib = ctypes.CDLL(str(so))
     print(f"version {name}: {src}{' ' + ' '.join(flags) if flags else ''}")
+    render = _version_render(name, lib)
+    if render is not None:
+        return (name, *render)
     if hasattr(lib, "zl_lane_mixdown"):
         _build.bind_mixdown(lib)
 
@@ -1246,8 +1431,8 @@ def load_version(spec: str) -> tuple:
     return name, "fetch", fetch
 
 
-def phase_timing(device, card: str, versions: dict,
-                 mix_versions: dict) -> dict:
+def phase_timing(device, card: str, versions: dict, mix_versions: dict,
+                 render_versions: dict) -> dict:
     from libzl_tpu_torch.engine.engine import AudioEngine
     from libzl_tpu_torch.ops import fetch_windows as fw
 
@@ -1427,7 +1612,7 @@ def phase_timing(device, card: str, versions: dict,
               f"bit-equal outputs; p50 of 50 each, in turns)")
 
     time_mixdowns(device, card, res, session_mix, mix_versions)
-    time_render_kernels(device, card, res, calls)
+    time_render_kernels(device, card, res, calls, render_versions)
     torch.cuda.synchronize()
     return res
 
@@ -2657,11 +2842,12 @@ def _phase(name: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--compare", action="append", default=[],
+    ap.add_argument("--compare", "--version", action="append", default=[],
                     metavar="NAME=PATH.cu[,FLAG...]",
-                    help="also time this source of the windows fetch or of "
-                         "the lane mixdown (told by its C entry points) in "
-                         "phase 5, in turns with the port's (e.g. a parent "
+                    help="also time this source of the windows fetch, the "
+                         "lane mixdown, the voice prep, the voice post or "
+                         "the finish (told by its C entry points) in phase "
+                         "5, in turns with the port's (e.g. a parent "
                          "commit's copy); NAME is not kernel, plain, "
                          "library, empty or copy<n>")
     ap.add_argument("--mixdown-only", action="store_true",
@@ -2699,6 +2885,9 @@ def main() -> int:
         loaded = [load_version(spec) for spec in opts.compare]
         versions = {n: f for n, kind, f in loaded if kind == "fetch"}
         mix_versions = {n: f for n, kind, f in loaded if kind == "mixdown"}
+        render_versions = {name: {n: f for n, kind, f in loaded
+                                  if kind == name}
+                           for name in RENDER_KERNELS}
     if opts.mesh_cards_only:
         with _phase("13 mesh across cards"):
             launches = phase_mesh_cards(card)
@@ -2723,8 +2912,7 @@ def main() -> int:
         print(card)
         return 0
     check(not {"kernel", "plain", "library", "empty", "copy8", "copy4"}
-          & (set(versions) | set(mix_versions)),
-          "reserved version name")
+          & {n for n, _, _ in loaded}, "reserved version name")
     if opts.mixdown_only:
         with _phase("3 kernel (mixdown)"):
             phase_mixdown(device)
@@ -2752,7 +2940,8 @@ def main() -> int:
     with _phase("4 slice"):
         launches = phase_slice(device)
     with _phase("5 timing"):
-        timing = phase_timing(device, card, versions, mix_versions)
+        timing = phase_timing(device, card, versions, mix_versions,
+                              render_versions)
     synthetic = f"{NUM_VOICES}x{SUPER_BLOCK}_synthetic"
     session = f"{NUM_VOICES}x{SUPER_BLOCK}_session"
     with _phase("6 default engine"):

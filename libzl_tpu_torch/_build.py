@@ -204,18 +204,27 @@ def bind_render(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of the kernels around the fetch and the
     mixdown: voice prep, voice post and the finish."""
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    # columns (a PrepColumns by reference), S, W, pos_local, alpha, g,
-    # valid, V, B, region, stream
-    lib.zl_voice_prep.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, i64,
-                                  i64, i64, ptr]
+    outs = [ptr] * 6  # pos_local, alpha, g, valid, win_a, win_b
+    # columns (a PrepColumns by reference), S, W, outputs, V, B, region,
+    # stream
+    lib.zl_voice_prep.argtypes = [ptr, i64, i64, *outs, i64, i64, i64, ptr]
+    # the same with the dynamics, their row stride and slice h's offset
+    # after the columns
+    lib.zl_voice_prep_slice.argtypes = [ptr, ptr, i64, i64, i64, i64, *outs,
+                                        i64, i64, i64, ptr]
     # interp, g, valid, pan, pan stride, contrib, peak, V, B, stream
     lib.zl_voice_post.argtypes = [ptr, ptr, ptr, ptr, i64, ptr, ptr, i64,
                                   i64, ptr]
-    # mix, strips, strips out, meters, master peak, H, L, B, stream
-    lib.zl_finish_block.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
-                                    ptr]
-    for fn in (lib.zl_voice_prep, lib.zl_voice_post, lib.zl_finish_block):
+    # mix, strips, strips out, meters, master peak, partial (scratch), H, L,
+    # B, stream
+    lib.zl_finish_block.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64,
+                                    i64, ptr]
+    for fn in (lib.zl_voice_prep, lib.zl_voice_prep_slice, lib.zl_voice_post,
+               lib.zl_finish_block):
         fn.restype = ctypes.c_int
+    # H, L, B -> the floats of scratch the finish needs
+    lib.zl_finish_block_scratch.argtypes = [i64, i64, i64]
+    lib.zl_finish_block_scratch.restype = i64
     return lib
 
 

@@ -63,6 +63,7 @@ each render shape is captured once and replayed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import NamedTuple
@@ -126,6 +127,29 @@ def _on(device: torch.device):
 
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+_gc_lock = threading.Lock()
+_gc_held = [0, False]   # captures under way, the collector's state before
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cyclic garbage collector off while any capture, of any
+    engine on any thread, is under way; back to its state before after the
+    last."""
+    with _gc_lock:
+        if _gc_held[0] == 0:
+            _gc_held[1] = gc.isenabled()
+            gc.disable()
+        _gc_held[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_held[0] -= 1
+            if _gc_held[0] == 0 and _gc_held[1]:
+                gc.enable()
 
 
 class _PlainGraph:
@@ -358,7 +382,10 @@ class RenderGraphs:
                     side = self._side[device] = torch.cuda.Stream()
                 side.wait_stream(cur)
                 reserved = torch.cuda.memory_reserved(device)
-                with torch.cuda.stream(side), \
+                # no garbage collection on this thread while it captures:
+                # collecting an orphaned engine's graphs destroys them, which
+                # a capturing stream does not permit (the capture fails)
+                with torch.cuda.stream(side), _no_gc(), \
                         launch_tally.recording() as tally:
                     graph = torch.cuda.CUDAGraph()
                     graph.capture_begin(capture_error_mode="thread_local")

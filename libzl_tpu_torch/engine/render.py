@@ -143,7 +143,7 @@ def render_block_fused(
 
 def render_horizon_math(
     sound_data,
-    progs,                      # sequence of `slices` VoicePrograms
+    progs,          # `slices` VoicePrograms (or ops/voice.HorizonSlice)
     strips: "torch.Tensor | mixer_ops.StripParams",
     block_frames: int,
     quirk_gain: bool = False,
@@ -202,8 +202,10 @@ def render_horizon_compact(
 ) -> tuple:
     """A horizon from the base program [V, K] and the compact dynamics
     [V, 1+(H-1)*D] (ops/voice.pack_horizon_dynamics), bit-identical to
-    render_horizon_fused on the full stacked programs."""
-    progs = voice_ops.horizon_programs(base_fused, dyn, slices, block_frames)
+    render_horizon_fused on the full stacked programs. Slices 1..H-1 render
+    from ops/voice.HorizonSlice sources: the windows path's voice prep reads
+    them straight from the dynamics."""
+    progs = voice_ops.horizon_sources(base_fused, dyn, slices)
     outs = render_horizon_math(
         sound_data, progs, strips_packed, block_frames, quirk_gain=quirk_gain,
         fetch=fetch, max_pitch_ratio=max_pitch_ratio,

@@ -39,7 +39,6 @@ from . import meters as meter_ops
 from . import mixer as mixer_ops
 
 FIRST_CHANNEL_LANE = 2
-MAX_FRAMES = 16384      # csrc/finish_block.cu's bound on B (shared memory)
 
 
 def _tree_sum(x):
@@ -78,24 +77,19 @@ def finish_plain(lane_mix, strips_packed) -> tuple:
             meter_ops.block_peaks(dry[:, 0]))
 
 
-def finish(lane_mix, strips_packed) -> tuple:
-    """The finish of `finish_plain`'s contract.
-
-    CPU tensors take `finish_plain`. CUDA tensors launch the kernel
-    (csrc/finish_block.cu) on the calling thread's current stream, or
-    raise: a CUDA tensor never reaches the plain version.
-    `finish.launches` counts kernel launches from every thread."""
+def check_finish(lane_mix, strips_packed) -> tuple:
+    """(H, L, B) of a finish the kernel takes: lane_mix float32 [H, L, B, 2]
+    with L > 2 lanes and B >= 1 frames (any B: past 16384 the kernel splits
+    each lane's tree across CTAs), strips_packed float32 [5, L - 1], both
+    contiguous on lane_mix's device. Raises ValueError otherwise; needs no
+    card."""
     dev = lane_mix.device
-    if dev.type == "cpu":
-        return finish_plain(lane_mix, strips_packed)
-    if dev.type != "cuda":
-        raise ValueError(f"finish: unsupported device {dev}")
-    from .. import _build
-
     if lane_mix.dim() != 4 or lane_mix.shape[3] != 2 \
-            or lane_mix.shape[1] <= FIRST_CHANNEL_LANE:
+            or lane_mix.shape[1] <= FIRST_CHANNEL_LANE \
+            or lane_mix.shape[2] < 1:
         raise ValueError(f"finish: lane_mix must be [H, L, B, 2] with L > "
-                         f"{FIRST_CHANNEL_LANE}, got {tuple(lane_mix.shape)}")
+                         f"{FIRST_CHANNEL_LANE} and B > 0, got "
+                         f"{tuple(lane_mix.shape)}")
     H, L, B = lane_mix.shape[:3]
     for name, t, shape in (("lane_mix", lane_mix, (H, L, B, 2)),
                            ("strips_packed", strips_packed, (5, L - 1))):
@@ -106,18 +100,38 @@ def finish(lane_mix, strips_packed) -> tuple:
                              f"float32 {shape} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"finish: {name} must be contiguous")
-    if not 0 < B <= MAX_FRAMES:
-        raise ValueError(f"finish: B={B}; the kernel takes 1..{MAX_FRAMES}")
+    return H, L, B
+
+
+def finish(lane_mix, strips_packed) -> tuple:
+    """The finish of `finish_plain`'s contract.
+
+    CPU tensors take `finish_plain`. CUDA tensors launch the kernel
+    (csrc/finish_block.cu; past 16384 frames with a second pass that
+    combines each lane's partial trees) on the calling thread's current
+    stream, or raise: a CUDA tensor never reaches the plain version.
+    `finish.launches` counts kernel calls from every thread."""
+    dev = lane_mix.device
+    if dev.type == "cpu":
+        return finish_plain(lane_mix, strips_packed)
+    if dev.type != "cuda":
+        raise ValueError(f"finish: unsupported device {dev}")
+    from .. import _build
+
+    H, L, B = check_finish(lane_mix, strips_packed)
     strips = torch.empty((3, H, L - 1, B, 2), dtype=torch.float32,
                          device=dev)
     meters = torch.empty((2, H, L, 2), dtype=torch.float32, device=dev)
     master_peak = torch.empty((H, 2), dtype=torch.float32, device=dev)
     lib = _build.load()
+    n = lib.zl_finish_block_scratch(H, L, B)
+    partial = torch.empty((n,), dtype=torch.float32, device=dev) if n else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.zl_finish_block(
             lane_mix.data_ptr(), strips_packed.data_ptr(), strips.data_ptr(),
-            meters.data_ptr(), master_peak.data_ptr(), H, L, B, stream)
+            meters.data_ptr(), master_peak.data_ptr(),
+            None if partial is None else partial.data_ptr(), H, L, B, stream)
     _build.check(lib, code, "finish_block launch")
     launch_tally.count("finish_block")
     return strips[0], strips[1], strips[2], meters[0], meters[1], master_peak

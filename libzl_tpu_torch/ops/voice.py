@@ -16,9 +16,10 @@ program layout (`VoiceProgram`, `pack_program`, `fuse_packed`,
 the host half of the compact lookahead horizon (`pack_horizon_dynamics`,
 `horizon_dyn_cols`), `pack_strips` and `empty_program`. The device half
 (`split_fused`, `unpack_horizon_slice`, `horizon_programs`,
-`voice_contrib`, `render_voices`) runs on tensors; the per-frame body
-around the fetch (positions, envelope, gain, masks, pan, peaks) is
-ops/voice_render.py's, whose `positions_block` this module re-exports.
+`HorizonSlice`, `horizon_sources`, `voice_contrib`, `render_voices`) runs
+on tensors; the per-frame body around the fetch (positions, envelope,
+gain, masks, pan, peaks, and a horizon slice's unpack on the windows path)
+is ops/voice_render.py's, whose `positions_block` this module re-exports.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from .voice_render import (  # noqa: F401 (positions_block: this module's API)
     voice_fields,
     voice_post,
     voice_prep,
+    voice_prep_slice,
 )
 
 # ----------------------------------------------------------- host half
@@ -461,11 +463,39 @@ def horizon_programs(base_fused, dyn, slices: int,
                      block_frames: int) -> list:
     """All H per-block VoicePrograms of a compact horizon: slice 0 from the
     fused base program, slices 1..H-1 rebuilt from the dynamics."""
+    base, *rest = horizon_sources(base_fused, dyn, slices)
+    return [base] + [src.program(block_frames) for src in rest]
+
+
+class HorizonSlice(NamedTuple):
+    """Slice h >= 1 of a compact horizon as a render's program source: the
+    base program (slice 0's, whose statics and lanes every slice shares) and
+    the compact dynamics [V, 1+(H-1)*D]. The windows path reads it straight
+    into the voice prep (ops/voice_render.voice_prep_slice: on a card no
+    slice program is built); the gather path unpacks it (`program`)."""
+
+    base: VoiceProgram
+    dyn: Any
+    h: int
+
+    @property
+    def lane(self):
+        return self.base.lane
+
+    @property
+    def pan(self):
+        return self.base.pan
+
+    def program(self, block_frames: int) -> VoiceProgram:
+        return unpack_horizon_slice(self.base, self.dyn, self.h,
+                                    block_frames)
+
+
+def horizon_sources(base_fused, dyn, slices: int) -> list:
+    """A compact horizon's H program sources: slice 0's program from the
+    fused base program, then a HorizonSlice for each of slices 1..H-1."""
     base = unpack_program(*split_fused(base_fused))
-    return [base] + [
-        unpack_horizon_slice(base, dyn, h, block_frames)
-        for h in range(1, slices)
-    ]
+    return [base] + [HorizonSlice(base, dyn, h) for h in range(1, slices)]
 
 
 def _gather_taps(sound_data, safe_pos0, safe_pos1):
@@ -485,7 +515,7 @@ def _gather_taps(sound_data, safe_pos0, safe_pos1):
 
 def render_voices(
     sound_data,           # [2, N] planar or [N, 2] interleaved, f32|int16
-    prog: VoiceProgram,
+    prog,                 # a VoiceProgram or a HorizonSlice
     block_frames: int,
     quirk_gain: bool = False,
     num_lanes: int = NUM_SAMPLER_CHANNELS,
@@ -508,7 +538,7 @@ def render_voices(
 
 def voice_contrib(
     sound_data,
-    prog: VoiceProgram,
+    prog,
     block_frames: int,
     quirk_gain: bool = False,
     fetch: str = "gather",
@@ -523,7 +553,8 @@ def voice_contrib(
     path needs the planar bank with the region tail guard).
     `out` ([V, B, 2] f32, contiguous) receives contrib, as one slice of a
     horizon's stacked contributions does.
-    Returns (voice_peak [V] f32, contrib [V, B, 2] f32)."""
+    Returns (voice_peak [V] f32, contrib [V, B, 2] f32). `prog` is a
+    VoiceProgram or a HorizonSlice."""
     B = block_frames
     if fetch.startswith("windows") and quirk_gain:
         # the reference-exact parity expression needs the taps separately;
@@ -533,14 +564,18 @@ def voice_contrib(
         # the suffix only steers the TPU kernel's Mosaic schedule: validate
         # it like the reference, then ignore it
         parse_suffix(fetch.partition(":")[2])
-        pos_local, alpha, g, valid = voice_prep(prog, B, max_pitch_ratio)
-        interp = fetch_interp(
-            sound_data, pos_local, alpha,
-            prog.win_blk_a.contiguous(), prog.win_blk_b.contiguous(),
-            r_max=max_pitch_ratio,
-        )  # [V, 2, B] planar
+        if isinstance(prog, HorizonSlice):
+            prep = voice_prep_slice(prog.base, prog.dyn, prog.h, B,
+                                    max_pitch_ratio)
+        else:
+            prep = voice_prep(prog, B, max_pitch_ratio)
+        pos_local, alpha, g, valid, win_a, win_b = prep
+        interp = fetch_interp(sound_data, pos_local, alpha, win_a, win_b,
+                              r_max=max_pitch_ratio)  # [V, 2, B] planar
         return voice_post(interp, g, valid, prog.pan, out=out)
 
+    if isinstance(prog, HorizonSlice):
+        prog = prog.program(B)
     pos_int, alpha, _, g, valid = voice_fields(prog, B)
     inv_alpha = 1.0 - alpha
     # Both taps are clamped into the sound's own region; lanes where the

@@ -5,19 +5,26 @@ The reference renders a block as one XLA program (libzl_tpu/ops/voice.py::
 render_voices): positions, closed-form ADSR, masks, the windows fetch, gain,
 M/S pan and peaks fuse there. The port's windows path is three launches:
 
-    voice_prep   program -> pos_local, alpha (the fetch's inputs), g, valid
-    fetch_interp pos_local, alpha -> interpolated taps [V, 2, B]
-                 (ops/fetch_windows.py, csrc/fetch_interp.cu)
+    voice_prep   program -> pos_local, alpha (the fetch's inputs), g, valid,
+                 the window anchors win_a, win_b
+    fetch_interp pos_local, alpha, win_a, win_b -> interpolated taps
+                 [V, 2, B] (ops/fetch_windows.py, csrc/fetch_interp.cu)
     voice_post   taps, g, valid, pan -> contributions [V, B, 2], peaks [V]
 
+The voice prep reads a block's program (`voice_prep`) or slice h >= 1 of a
+compact lookahead horizon straight from the base program and the compact
+dynamics (`voice_prep_slice`: the reference's unpack_horizon_slice folded
+into the prep, so no slice program is built on the card).
+
 Two implementations of each contract:
-- `voice_prep_plain`, `voice_post_plain`: plain PyTorch ops, the reference's
-  formulas in its f32 order (the code ops/voice.py ran before the kernels);
-  the CPU path, and each kernel's oracle on the card;
+- `voice_prep_plain`, `voice_prep_slice_plain`, `voice_post_plain`: plain
+  PyTorch ops, the reference's formulas in its f32 order (the code
+  ops/voice.py ran before the kernels); the CPU path, and each kernel's
+  oracle on the card;
 - the CUDA kernels csrc/voice_prep.cu and csrc/voice_post.cu, launched by
-  `voice_prep` and `voice_post` for CUDA tensors. They round every product,
-  sum and quotient on its own (no contraction into FMAs), so they are
-  bit-equal to the plain versions on the card.
+  `voice_prep`, `voice_prep_slice` and `voice_post` for CUDA tensors. They
+  round every product, sum and quotient on its own (no contraction into
+  FMAs), so they are bit-equal to the plain versions on the card.
 
 `voice_fields` (positions, envelope, gain and the valid mask) and
 `pan_and_peak` serve the gather fetch too (ops/voice.voice_contrib), which
@@ -52,7 +59,6 @@ _FLOAT_COLUMNS = {"rate_frac", "gain", "clip_volume", "env.env0",
                   "env.a_rate", "env.d_rate", "env.sustain", "env.rel_rate",
                   "env.inv_rel", "env.rel_log2", "seg_pos_frac"}
 MAX_SEGMENTS = 8      # csrc/voice_prep.cu's bound on S
-MAX_BQ_RESETS = 64    # and on W
 
 
 class PrepColumns(ctypes.Structure):
@@ -139,9 +145,11 @@ def voice_fields(prog, block_frames: int) -> tuple:
 
 def voice_prep_plain(prog, block_frames: int, max_pitch_ratio: float = R_MAX):
     """The voice prep in plain PyTorch: (pos_local [V,B] i32, alpha [V,B]
-    f32, g [V,B] f32, valid [V,B] bool). pos_local is the window-relative
-    address fetch_interp takes: segment 0 in region A ([0, region)), wrap
-    segments in region B (offset by region)."""
+    f32, g [V,B] f32, valid [V,B] bool, win_a [V] i32, win_b [V] i32).
+    pos_local is the window-relative address fetch_interp takes: segment 0
+    in region A ([0, region)), wrap segments in region B (offset by
+    region); win_a and win_b are the program's window anchors, contiguous
+    (the fetch's other inputs)."""
     B = block_frames
     pos_int, alpha, seg_idx, g, valid = voice_fields(prog, B)
     region = region_rows(B, max_pitch_ratio)
@@ -154,7 +162,21 @@ def voice_prep_plain(prog, block_frames: int, max_pitch_ratio: float = R_MAX):
         - anchor * SOUND_BLOCK
         + torch.where(in_a, 0, region)
     ).to(_I32)
-    return pos_local, alpha, g, valid
+    return (pos_local, alpha, g, valid, prog.win_blk_a.contiguous(),
+            prog.win_blk_b.contiguous())
+
+
+def voice_prep_slice_plain(base, dyn, h: int, block_frames: int,
+                           max_pitch_ratio: float = R_MAX):
+    """The voice prep of slice h >= 1 of a compact horizon in plain
+    PyTorch: ops/voice.unpack_horizon_slice(base, dyn, h), then
+    voice_prep_plain. base: slice 0's program; dyn: the compact dynamics
+    [V, 1+(H-1)*D] int32 (ops/voice.pack_horizon_dynamics)."""
+    from .voice import unpack_horizon_slice  # ops/voice imports this module
+
+    return voice_prep_plain(
+        unpack_horizon_slice(base, dyn, h, block_frames), block_frames,
+        max_pitch_ratio)
 
 
 def pan_and_peak(l, r, valid, pan, out=None) -> tuple:
@@ -193,28 +215,19 @@ def voice_post_plain(interp, g, valid, pan, out=None) -> tuple:
 # ----------------------------------------------------------------- wrappers
 
 
-def voice_prep(prog, block_frames: int, max_pitch_ratio: float = R_MAX):
-    """The voice prep: (pos_local, alpha, g, valid), [V, B] each.
-
-    A program on the CPU takes `voice_prep_plain`. On a card it launches
-    the kernel (csrc/voice_prep.cu) on the calling thread's current stream,
-    or raises: a CUDA tensor never reaches the plain version. The columns
-    may be strided views (a block's fused program) or tensors of their own
-    (a horizon slice's); a column block's columns must be adjacent.
-    `voice_prep.launches` counts kernel launches from every thread."""
+def prep_columns(prog) -> tuple:
+    """The program's columns as csrc/voice_prep.cu takes them: (PrepColumns,
+    S, W), each column checked for its dtype, shape, device (the `active`
+    column's) and layout (a column block's columns adjacent; any row
+    stride). Any number W of beat-quantized resets; 1..MAX_SEGMENTS
+    segments. Raises ValueError on what the kernel does not take; needs no
+    card."""
     dev = prog.active.device
-    if dev.type == "cpu":
-        return voice_prep_plain(prog, block_frames, max_pitch_ratio)
-    if dev.type != "cuda":
-        raise ValueError(f"voice_prep: unsupported device {dev}")
-    from .. import _build
-
-    V, B = prog.active.shape[0], block_frames
+    V = prog.active.shape[0]
     S, W = prog.seg_start.shape[1], prog.bq_reset.shape[1]
-    if not (0 < S <= MAX_SEGMENTS and 0 <= W <= MAX_BQ_RESETS):
-        raise ValueError(f"voice_prep: {S} segments and {W} beat-quantized "
-                         f"resets; the kernel takes 1..{MAX_SEGMENTS} and "
-                         f"0..{MAX_BQ_RESETS}")
+    if not 0 < S <= MAX_SEGMENTS:
+        raise ValueError(f"voice_prep: {S} segments; the kernel takes "
+                         f"1..{MAX_SEGMENTS}")
     cols = PrepColumns()
     for i, name in enumerate(PREP_COLUMNS):
         t = _column(prog, name)
@@ -231,22 +244,104 @@ def voice_prep(prog, block_frames: int, max_pitch_ratio: float = R_MAX):
                              f"adjacent (stride {t.stride()})")
         cols.ptr[i] = t.data_ptr()
         cols.stride[i] = t.stride(0)
-    pos_local = torch.empty((V, B), dtype=_I32, device=dev)
-    alpha = torch.empty((V, B), dtype=_F32, device=dev)
-    g = torch.empty((V, B), dtype=_F32, device=dev)
-    valid = torch.empty((V, B), dtype=torch.bool, device=dev)
+    return cols, S, W
+
+
+def slice_offset(base, dyn, h: int) -> int:
+    """Where slice h's words start in a row of the compact dynamics `dyn`
+    (1 + (h-1) * D, D = ops/voice.horizon_dyn_cols(W)), after checking
+    `dyn`: int32 [V, >= 1 + h*D] on the base program's device, its words
+    adjacent in a row. Raises ValueError on what the kernel does not take;
+    needs no card."""
+    from .voice import horizon_dyn_cols  # ops/voice imports this module
+
+    V, W = base.active.shape[0], base.bq_reset.shape[1]
+    D = horizon_dyn_cols(W)
+    off = 1 + (h - 1) * D
+    if h < 1 or dyn.dim() != 2 or dyn.dtype != _I32 \
+            or dyn.device != base.active.device or dyn.shape[0] != V \
+            or dyn.shape[1] < off + D or dyn.stride(1) != 1:
+        raise ValueError(f"voice_prep_slice: slice {h} of dynamics "
+                         f"{dyn.dtype} {tuple(dyn.shape)} (strides "
+                         f"{dyn.stride()}) on {dyn.device}; expected h >= 1 "
+                         f"and int32 [{V}, >= {off + D}] with adjacent "
+                         f"words on {base.active.device}")
+    return off
+
+
+def _device(t, what: str):
+    """The device a wrapper runs on: None for the CPU (the plain version),
+    a CUDA device; raises for any other."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device
+
+
+def _launch_prep(dev, entry: str, args: tuple, V: int, B: int,
+                 max_pitch_ratio: float) -> tuple:
+    """Launch one of the voice prep's C entry points, `args` before its
+    outputs; returns the outputs."""
+    from .. import _build
+
+    out = (torch.empty((V, B), dtype=_I32, device=dev),
+           torch.empty((V, B), dtype=_F32, device=dev),
+           torch.empty((V, B), dtype=_F32, device=dev),
+           torch.empty((V, B), dtype=torch.bool, device=dev),
+           torch.empty((V,), dtype=_I32, device=dev),
+           torch.empty((V,), dtype=_I32, device=dev))
     if V * B == 0:
-        return pos_local, alpha, g, valid
+        return out
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.zl_voice_prep(
-            ctypes.byref(cols), S, W, pos_local.data_ptr(), alpha.data_ptr(),
-            g.data_ptr(), valid.data_ptr(), V, B,
-            region_rows(B, max_pitch_ratio), stream)
+        code = getattr(lib, entry)(*args, *(t.data_ptr() for t in out), V,
+                                   B, region_rows(B, max_pitch_ratio),
+                                   stream)
     _build.check(lib, code, "voice_prep launch")
     launch_tally.count("voice_prep")
-    return pos_local, alpha, g, valid
+    return out
+
+
+def voice_prep(prog, block_frames: int, max_pitch_ratio: float = R_MAX):
+    """The voice prep of a block's program: (pos_local, alpha, g, valid)
+    [V, B] each and the window anchors (win_a, win_b) [V].
+
+    A program on the CPU takes `voice_prep_plain`. On a card it launches
+    the kernel (csrc/voice_prep.cu) on the calling thread's current stream,
+    or raises: a CUDA tensor never reaches the plain version. The columns
+    may be strided views (a block's fused program) or tensors of their own;
+    a column block's columns must be adjacent. `voice_prep.launches` counts
+    kernel launches from every thread (of this and `voice_prep_slice`)."""
+    dev = _device(prog.active, "voice_prep")
+    if dev is None:
+        return voice_prep_plain(prog, block_frames, max_pitch_ratio)
+    cols, S, W = prep_columns(prog)
+    return _launch_prep(dev, "zl_voice_prep", (ctypes.byref(cols), S, W),
+                        prog.active.shape[0], block_frames, max_pitch_ratio)
+
+
+def voice_prep_slice(base, dyn, h: int, block_frames: int,
+                     max_pitch_ratio: float = R_MAX):
+    """The voice prep of slice h >= 1 of a compact horizon, straight from
+    the base program (slice 0's, whose statics every slice shares) and the
+    compact dynamics `dyn` ([V, 1+(H-1)*D] int32, any row stride): the
+    outputs of `voice_prep` on ops/voice.unpack_horizon_slice(base, dyn, h).
+
+    On the CPU `voice_prep_slice_plain`; on a card the voice prep kernel
+    with the slice as its column source (no slice program is built), or a
+    ValueError. Counts in `voice_prep.launches`."""
+    dev = _device(base.active, "voice_prep_slice")
+    if dev is None:
+        return voice_prep_slice_plain(base, dyn, h, block_frames,
+                                      max_pitch_ratio)
+    cols, S, W = prep_columns(base)
+    off = slice_offset(base, dyn, h)
+    return _launch_prep(
+        dev, "zl_voice_prep_slice",
+        (ctypes.byref(cols), dyn.data_ptr(), dyn.stride(0), off, S, W),
+        base.active.shape[0], block_frames, max_pitch_ratio)
 
 
 def voice_post(interp, g, valid, pan, out=None) -> tuple:
@@ -257,11 +352,9 @@ def voice_post(interp, g, valid, pan, out=None) -> tuple:
     (csrc/voice_post.cu) on the calling thread's current stream, or raise.
     `pan` may be a strided column. `voice_post.launches` counts kernel
     launches from every thread."""
-    dev = interp.device
-    if dev.type == "cpu":
+    dev = _device(interp, "voice_post")
+    if dev is None:
         return voice_post_plain(interp, g, valid, pan, out)
-    if dev.type != "cuda":
-        raise ValueError(f"voice_post: unsupported device {dev}")
     from .. import _build
 
     if interp.dim() != 3 or interp.shape[1] != 2:

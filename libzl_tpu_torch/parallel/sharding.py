@@ -214,9 +214,10 @@ class ShardedRender:
                     parts.append((contrib, prog.lane.contiguous()))
                     peaks.append(vp)
                     continue
-                progs = voice_ops.horizon_programs(
-                    shard[:, :self.base_cols], shard[:, self.base_cols:], H,
-                    B)
+                # slices 1..H-1 straight from the dynamics (the windows
+                # path's voice prep unpacks them in its kernel on a card)
+                progs = voice_ops.horizon_sources(
+                    shard[:, :self.base_cols], shard[:, self.base_cols:], H)
                 contrib = torch.empty((H, s, B, 2), dtype=torch.float32,
                                       device=dev)
                 vps = [voice_ops.voice_contrib(sound, prog, B, out=contrib[h],
@@ -307,9 +308,10 @@ def render_horizon_sharded(
     """A lookahead horizon over the mesh (make_shardmap_horizon_render's
     counterpart, one-buffer layout): `hz_fused` is the host's base program
     and compact dynamics in one int32 [V, base_cols + 1+(H-1)*D] array; each
-    shard rebuilds its H slices' programs (ops/voice.horizon_programs),
-    renders each slice's contributions into one stacked [H, V/k, B, 2]
-    buffer and folds them with one mixdown launch into the [H, 12, B, 2]
+    shard renders its H slices (slice 0 from the base program, the rest
+    from ops/voice.HorizonSlice sources: on a card the voice prep kernel
+    reads them from the dynamics), each slice's contributions into one
+    stacked [H, V/k, B, 2] buffer, and folds them with one mixdown launch into the [H, 12, B, 2]
     lane mixes carried from the shard before (the counterpart of the
     reference's one stacked psum). Each slice is the per-block math on its
     own program, as in render_horizon_onebuf."""

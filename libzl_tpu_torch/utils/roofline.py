@@ -64,19 +64,45 @@ def mixdown_bound(contrib, lane, init=None) -> dict:
     return _bound(nbytes, laned * (H if lane.dim() == 1 else 1) * B * 2)
 
 
+def _prep_ops(V: int, S: int, B: int) -> int:
+    """The voice prep's float32 work a voice and frame: the segment
+    fraction's masked sum, 2 S; the fraction, its floor and alpha, 4; the
+    envelope, at most 8 with its exp2; the gain, 2."""
+    return V * B * (2 * S + 14)
+
+
 def voice_prep_bound(prog, block_frames: int) -> dict:
     """The least time the card could take for one voice prep on this
     program: each program column read once (4 B a voice and column: 22
     scalars, 3 S segment and W reset columns) and the outputs written once
-    (pos_local, alpha and g 4 B, valid 1 B a voice and frame), against the
-    float32 work a voice and frame (the segment fraction's masked sum, 2 S;
-    the fraction, its floor and alpha, 4; the envelope, at most 8 with its
-    exp2; the gain, 2)."""
+    (pos_local, alpha and g 4 B, valid 1 B a voice and frame; the two
+    window anchors 4 B a voice), against the float32 work (_prep_ops)."""
     V, S = prog.seg_start.shape
     W = prog.bq_reset.shape[1]
     B = block_frames
-    return _bound(V * (22 + 3 * S + W) * 4 + 13 * V * B,
-                  V * B * (2 * S + 14))
+    return _bound(V * (22 + 3 * S + W) * 4 + 13 * V * B + 8 * V,
+                  _prep_ops(V, S, B))
+
+
+# the base program's columns a horizon slice reads (the rest come from the
+# dynamics): base, len_minus1, win_blk_b, rate_int, rate_frac, gain,
+# clip_volume, loop_period, a_rate, d_rate, sustain, inv_rel, rel_log2
+SLICE_STATIC_COLUMNS = 13
+
+
+def voice_prep_slice_bound(base, dyn, h: int, block_frames: int) -> dict:
+    """The least time the card could take for the voice prep of slice h of
+    a compact horizon: the slice's D words of the dynamics and its istart
+    column read once, the base program's static columns once
+    (SLICE_STATIC_COLUMNS, 4 B a voice each), the outputs written once (as
+    voice_prep_bound), against the same float32 work."""
+    from ..ops.voice import horizon_dyn_cols
+
+    V, S = base.seg_start.shape
+    D = horizon_dyn_cols(base.bq_reset.shape[1])
+    B = block_frames
+    return _bound(V * (SLICE_STATIC_COLUMNS + 1 + D) * 4 + 13 * V * B + 8 * V,
+                  _prep_ops(V, S, B))
 
 
 def voice_post_bound(interp, g, valid, pan) -> dict:

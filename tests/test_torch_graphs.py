@@ -341,6 +341,29 @@ def test_capture_failure_raises_and_keeps_no_graph():
     assert len(g) == 0 and g.captures == 0
 
 
+def test_captures_hold_off_the_garbage_collector():
+    """Collecting an orphaned engine's graphs destroys them, which a
+    capturing stream does not permit: the collector stays off while any
+    capture is under way (nested, or on two threads) and comes back to its
+    state before after the last."""
+    import gc
+
+    assert gc.isenabled()
+    with graphs_mod._no_gc():
+        assert not gc.isenabled()
+        with graphs_mod._no_gc():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs_mod._no_gc():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_stale_render_runs_once_without_a_graph():
     """A render prepared for inputs the graphs no longer read (the bank
     grew meanwhile) runs once as it is: nothing is captured for it."""

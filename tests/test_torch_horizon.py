@@ -9,7 +9,8 @@ build block's note-off, wrap frames, deaths and (at B=1024) the bq_reset
 columns.
 
 - unpack_horizon_slice / horizon_programs: bit-equal to the reference's
-  numpy path on the same dynamics (pack_horizon_dynamics);
+  numpy path on the same dynamics (pack_horizon_dynamics); the renders'
+  HorizonSlice sources unpack to the same programs;
 - render_horizon_onebuf / _compact / _fused: bit-equal to H calls of the
   port's render_block_fused on the host-built programs, and held against the
   reference's jitted render_horizon_onebuf (JAX on the CPU, gather fetch) at
@@ -150,6 +151,26 @@ def test_unpack_horizon_slice_rebuilds_active_rows(B, H):
         np.testing.assert_array_equal(pf[act].view(np.int32),
                                       rpf[act].view(np.int32),
                                       err_msg=f"{h} floats")
+
+
+@pytest.mark.parametrize("B,H", GEOMETRIES)
+def test_horizon_sources_are_the_horizon_programs(B, H):
+    """horizon_sources: slice 0's program, then HorizonSlice sources that
+    unpack to horizon_programs' slices and share the base's lanes and
+    pans."""
+    _, packed, dyn = horizon_fixture(B, H)
+    base = torch.from_numpy(ref_voice.fuse_packed(*packed[0]))
+    dyn = torch.from_numpy(dyn)
+    sources = tv.horizon_sources(base, dyn, H)
+    progs = tv.horizon_programs(base, dyn, H, B)
+    assert len(sources) == H and isinstance(sources[0], tv.VoiceProgram)
+    for h in range(1, H):
+        src = sources[h]
+        assert isinstance(src, tv.HorizonSlice) and src.h == h
+        assert src.lane is sources[0].lane and src.pan is sources[0].pan
+        got, want = _fields(src.program(B)), _fields(progs[h])
+        for name in want:
+            assert torch.equal(got[name], want[name]), (h, name)
 
 
 def _inputs(B, H, fetch):

@@ -767,6 +767,54 @@ def device_program(prog, device="cpu"):
     return voice.unpack_program(*voice.split_fused(fused.to(device)))
 
 
+def _pack16(lo, hi):
+    """Two 16-bit fields in one int32 word: lo | hi << 16."""
+    return ((np.asarray(hi, np.uint32) << 16)
+            | np.asarray(lo, np.uint32)).view(np.int32)
+
+
+def hostile_dynamics(seed: int, V: int, B: int, H: int, W: int = 0):
+    """Compact horizon dynamics [V, 1+(H-1)*D] int32 in
+    ops/voice.pack_horizon_dynamics' layout that reach every branch of a
+    slice's unpack: negative positions (the anchor's clamp at 0), wraps in
+    the block and past it (duplicates included), stops mid-block, releases
+    at 0, mid-block and none (the 16-bit sentinel), every stage and both
+    release modes, inactive rows, W 16-bit resets in and past the block."""
+    from libzl_tpu_torch.ops import voice
+
+    rng = np.random.default_rng(seed)
+    S = voice.MAX_SEGMENTS_PER_BLOCK
+    D = voice.horizon_dyn_cols(W)
+    dyn = np.zeros((V, 1 + (H - 1) * D), np.int32)
+    bits = dyn.view(np.float32)
+    dyn[:, 0] = rng.integers(0, 30000, V)                    # istart
+    for t in range(H - 1):
+        off = 1 + t * D
+        dyn[:, off] = rng.integers(-3000, 30000, V)          # pos_int
+        bits[:, off + 1] = rng.random(V)                     # pos_frac
+        bits[:, off + 2] = rng.uniform(0, 1, V)              # env0
+        bits[:, off + 3] = rng.uniform(0, 0.002, V)          # rel_rate
+        wraps = np.sort(rng.integers(1, B + B // 4 + 2, (V, S - 1)), axis=1)
+        stop = np.where(rng.random(V) < 0.3, rng.integers(1, B + 1, V), B)
+        fields = [wraps[:, i] for i in range(S - 1)] + [stop]
+        fields += [np.zeros(V, np.int64)] * (len(fields) % 2)
+        for c in range(len(fields) // 2):
+            dyn[:, off + 4 + c] = _pack16(fields[2 * c], fields[2 * c + 1])
+        npack = (S + 1) // 2
+        rf = rng.choice([0, 1, B // 2, B - 1, 0xFFFF], V)
+        rf = np.where(rng.random(V) < 0.4, rng.integers(0, B, V), rf)
+        dyn[:, off + 4 + npack] = (
+            rf | (rng.random(V) < 0.85) << 16
+            | rng.integers(0, 5, V) << 17 | rng.integers(0, 2, V) << 20)
+        resets = np.minimum(np.sort(rng.integers(0, B + B // 2, (V, W)),
+                                    axis=1), 0xFFFF)
+        resets = np.concatenate([resets, np.zeros((V, W % 2), np.int64)], 1)
+        for c in range((W + 1) // 2):
+            dyn[:, off + 5 + npack + c] = _pack16(resets[:, 2 * c],
+                                                  resets[:, 2 * c + 1])
+    return dyn
+
+
 def own_columns(prog):
     """The program with every column a tensor of its own (a horizon slice's
     layout): contiguous copies of the strided views."""
@@ -858,12 +906,129 @@ def test_voice_post_kernel_matches_plain_on_card(V, B):
     assert (buf[0] == 7.0).all() and (buf[2] == 7.0).all()
 
 
+# (V, B) of the voice prep at W = 67 beat-quantized resets (B=10240 at 48
+# kHz needs 67: constants.bq_extra_resets) and of its horizon slices
+PREP_SHAPES = [(1024, 128), (1024, 1024), (16, 130), (64, 10240)]
+
+
+def _assert_prep_equal(got, want, what: str):
+    names = ("pos_local", "alpha", "g", "valid", "win_a", "win_b")
+    assert len(got) == len(want) == len(names)
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.is_contiguous(), (what, name)
+        assert torch.equal(a, b), (what, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B", PREP_SHAPES)
+def test_voice_prep_kernel_at_many_resets_on_card(V, B):
+    """W = 67 resets (past the 64 the first kernel took): every output and
+    the anchors torch.equal to the plain version, from strided and from own
+    columns."""
+    _need_card()
+    prog = device_program(hostile_program(23, V, B, 67), "cuda")
+    want = vr.voice_prep_plain(prog, B)
+    _assert_prep_equal(vr.voice_prep(prog, B), want, "strided")
+    _assert_prep_equal(vr.voice_prep(own_columns(prog), B), want, "own")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B", PREP_SHAPES)
+@pytest.mark.parametrize("H", [2, 16])
+def test_voice_prep_slice_kernel_matches_plain_on_card(V, B, H):
+    """Slices 1 and H-1 of a compact horizon with W = 67 resets straight
+    from the dynamics (strided, as a view of the horizon's one buffer):
+    every output torch.equal to unpack_horizon_slice + voice_prep_plain."""
+    _need_card()
+    W = 67
+    base = device_program(hostile_program(25, V, B, W), "cuda")
+    dyn = torch.from_numpy(hostile_dynamics(26, V, B, H, W)).to("cuda")
+    buf = torch.cat([torch.zeros((V, 5), dtype=torch.int32, device="cuda"),
+                     dyn], dim=1)
+    before = vr.voice_prep.launches
+    for h in sorted({1, H - 1}):
+        want = vr.voice_prep_slice_plain(base, dyn, h, B)
+        _assert_prep_equal(vr.voice_prep_slice(base, buf[:, 5:], h, B), want,
+                           f"slice {h}")
+    torch.cuda.synchronize()
+    assert vr.voice_prep.launches == before + len({1, H - 1})
+
+
+@pytest.mark.cuda
+def test_voice_prep_kernel_reads_resets_past_the_staged_ones_on_card():
+    """W = 600 resets, past the 512 a voice stages in shared memory: the
+    rest read from global memory, block and slice alike."""
+    _need_card()
+    V, B, W = 16, 1024, 600
+    prog = device_program(hostile_program(27, V, B, W), "cuda")
+    _assert_prep_equal(vr.voice_prep(prog, B), vr.voice_prep_plain(prog, B),
+                       "block")
+    dyn = torch.from_numpy(hostile_dynamics(28, V, B, 3, W)).to("cuda")
+    _assert_prep_equal(vr.voice_prep_slice(prog, dyn, 2, B),
+                       vr.voice_prep_slice_plain(prog, dyn, 2, B), "slice")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [128, 130, 1024])
+def test_voice_post_kernel_into_an_8_byte_aligned_out_on_card(B):
+    """`out` 8 bytes past a 16-byte boundary (as a slice of a stacked
+    buffer may be): contributions and peaks torch.equal to plain."""
+    _need_card()
+    V = 300
+    args = post_inputs(33, V, B, "cuda")
+    flat = torch.full((2 + V * B * 2 + 2,), 7.0, device="cuda")
+    out = flat[2:2 + V * B * 2].view(V, B, 2)
+    assert out.data_ptr() % 16 == 8
+    peak, _ = vr.voice_post(*args, out=out)
+    want_peak, want = vr.voice_post_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(peak, want_peak)
+    assert (flat[:2] == 7.0).all() and (flat[-2:] == 7.0).all()
+
+
+@pytest.mark.cuda
+def test_engine_on_card_at_a_large_block_matches_cpu():
+    """64 voices at B=10240 (W = 67 resets a voice at 48 kHz): the card's
+    per-block engine against the CPU's, a few blocks, at phase 4's
+    tolerances (voice peaks atol 2e-6; master rtol 1e-5, atol 2e-6 per
+    voice in the densest lane)."""
+    _need_card()
+    import chip_smoke
+    from libzl_tpu_torch.constants import bq_extra_resets
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    V, B = 64, 10240
+    assert bq_extra_resets(B, 48000) == 67
+    opts = dict(block_frames=B, num_voices=V, lookahead=0,
+                voice_buckets="off", ratio_ladder="off")
+    gpu, cpu = AudioEngine("cuda", **opts), AudioEngine("cpu", **opts)
+    for e in (gpu, cpu):
+        chip_smoke.build_session(e, num_voices=V, num_clips=8)
+    for _ in range(3):
+        og = gpu.process_block().outputs
+        oc = cpu.process_block().outputs
+        lanes = np.bincount(gpu.pool.lane[gpu.pool.active], minlength=12)
+        atol = 2e-6 * max(int(lanes.max()), 1)
+        torch.testing.assert_close(og.voice_peaks.cpu(), oc.voice_peaks,
+                                   rtol=0, atol=2e-6)
+        torch.testing.assert_close(og.master.cpu(), oc.master, rtol=1e-5,
+                                   atol=atol)
+    assert float(oc.master.abs().max()) > 0.01
+    assert gpu.fetch_dispatches == {"windows": 3, "gather": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,B", [(1, 64), (1, 130), (1, 1000), (1, 1024),
-                                 (16, 128), (16, 130), (2, 4096)])
+                                 (16, 128), (16, 130), (2, 4096), (1, 16384),
+                                 (1, 16512), (2, 16512), (1, 40000),
+                                 (2, 40000)])
 def test_finish_kernel_matches_plain_on_card(H, B):
     """Strips, peaks, RMS and master peak torch.equal to the plain version
-    (the master chain and the RMS tree in the spelled order)."""
+    (the master chain and the RMS tree in the spelled order; past 16384
+    frames each lane's tree split over CTAs and combined in a second
+    pass)."""
     _need_card()
     mix, strips = finish_inputs(41, H, B, "cuda")
     before = fin.finish.launches

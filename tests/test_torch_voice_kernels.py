@@ -16,6 +16,10 @@ reference, on the CPU.
   lane RMS rtol 1e-6, atol 1e-7 (another summation order); the plain
   version bit-equal to its spelled-out order in scalar float32.
 
+- Voice prep of a horizon slice (straight from the compact dynamics):
+  torch.equal to unpack_horizon_slice + voice_prep_plain, and the
+  reference's unpack_horizon_slice + render fields at the prep's rule.
+
 Programs are hostile draws (test_torch_kernels.hostile_program: every ADSR
 stage and release mode, releases, starts and stops mid-block, wrap segments
 with loop periods, beat-quantized resets, inactive rows, pan at +-1) and
@@ -42,9 +46,11 @@ from libzl_tpu_torch.ops import voice as tv
 from libzl_tpu_torch.ops import voice_render as vr
 from libzl_tpu_torch.utils import roofline
 from test_torch_fetch import make_pool_with_wraps
+from test_torch_horizon import horizon_fixture
 from test_torch_kernels import (
     device_program,
     finish_inputs,
+    hostile_dynamics,
     hostile_program,
     own_columns,
     post_inputs,
@@ -133,6 +139,75 @@ def test_voice_prep_plain_on_host_programs(B):
         assert_prep_equal(got, want, prog.env.rel_mode)
 
 
+def test_voice_prep_plain_matches_the_reference_at_a_large_block():
+    """B=10240 with W = 67 beat-quantized resets (the pool's count at 48
+    kHz), a few voices, against the reference's numpy path."""
+    from libzl_tpu_torch.constants import bq_extra_resets
+
+    B = 10240
+    W = bq_extra_resets(B, 48000)
+    assert W == 67
+    prog = hostile_program(11, 6, B, W)
+    want = ref_prep(np, ref_program(prog), B)
+    assert_prep_equal(vr.voice_prep_plain(device_program(prog), B), want,
+                      prog.env.rel_mode)
+    assert want[3].any()
+
+
+def test_voice_prep_plain_returns_the_programs_anchors():
+    """The window anchors among the outputs are the program's win_blk_a and
+    win_blk_b, contiguous (what fetch_interp takes)."""
+    prog = device_program(hostile_program(4, 20, 128, 2))
+    *_, win_a, win_b = vr.voice_prep_plain(prog, 128)
+    assert not prog.win_blk_a.is_contiguous()      # a strided column view
+    assert win_a.is_contiguous() and win_b.is_contiguous()
+    assert torch.equal(win_a, prog.win_blk_a)
+    assert torch.equal(win_b, prog.win_blk_b)
+
+
+@pytest.mark.parametrize("B", [128, 1024])
+@pytest.mark.parametrize("H", [2, 16])
+def test_voice_prep_slice_plain_matches_unpack_and_reference(B, H):
+    """Every slice h >= 1 of a host-built compact horizon: torch.equal to
+    unpack_horizon_slice + voice_prep_plain (the anchors those of the
+    unpacked slice: win_blk_a rebuilt, win_blk_b the base's), and the
+    reference's unpack_horizon_slice + render fields (its numpy path) at
+    the prep's rule (bit-equal; the gain except in exponential-release
+    rows, rtol 1e-6)."""
+    _, packed, dyn = horizon_fixture(B, H)
+    fused = ref_voice.fuse_packed(*packed[0])
+    base = tv.unpack_program(*tv.split_fused(torch.from_numpy(fused)))
+    ref_base = ref_voice.unpack_program(*ref_voice.split_fused(fused))
+    dyn_t = torch.from_numpy(dyn)
+    for h in range(1, H):
+        got = vr.voice_prep_slice_plain(base, dyn_t, h, B)
+        prog = tv.unpack_horizon_slice(base, dyn_t, h, B)
+        for a, b in zip(got, vr.voice_prep_plain(prog, B)):
+            assert torch.equal(a, b), h
+        assert torch.equal(got[4], prog.win_blk_a)
+        assert torch.equal(got[5], base.win_blk_b)
+        ref = ref_voice.unpack_horizon_slice(np, ref_base, dyn, h, B)
+        assert_prep_equal(got[:4], ref_prep(np, ref, B),
+                          np.asarray(ref.env.rel_mode))
+        np.testing.assert_array_equal(got[4].numpy(),
+                                      np.asarray(ref.win_blk_a))
+
+
+@pytest.mark.parametrize("H,W", [(2, 0), (3, 3), (16, 5)])
+def test_voice_prep_slice_plain_on_hostile_dynamics(H, W):
+    """Hostile dynamics (negative positions, wraps past the block, the
+    release sentinel, every stage): the slice source equals the unpacked
+    slice's prep, bit for bit, at every h."""
+    B = 130
+    base = device_program(hostile_program(8, 24, B, W))
+    dyn = torch.from_numpy(hostile_dynamics(9, 24, B, H, W))
+    for h in range(1, H):
+        want = vr.voice_prep_plain(tv.unpack_horizon_slice(base, dyn, h, B),
+                                   B)
+        for a, b in zip(vr.voice_prep_slice(base, dyn, h, B), want):
+            assert torch.equal(a, b), h
+
+
 def test_voice_prep_reads_strided_and_own_columns_alike():
     """A block's strided column views and a horizon slice's own tensors
     give the same prep."""
@@ -157,6 +232,22 @@ def test_prep_columns_follow_the_kernels_layout():
     prog = device_program(hostile_program(0, 4, 64))
     for name in vr.PREP_COLUMNS:
         vr._column(prog, name)          # every name is a program field
+    # the slice source: ops/voice.pack_horizon_dynamics' words as the kernel
+    # reads them (pos_int, pos_frac, env0, rel_rate, the 16-bit fields from
+    # word 4, the flags after them, the reset pairs after the flags), its
+    # sentinels and the anchor's floor division
+    const = dict(re.findall(r"constexpr int(?:32_t)? (k\w+) = ([^;]+);", src))
+    assert eval(const["kReleaseNone"]) == int(tv.RELEASE_NONE)
+    assert int(const["kField16"], 16) == tv._RF16
+    assert 1 << int(const["kAnchorShift"]) == tv.WINDOW_ANCHOR_BLOCK
+    assert int(const["kMaxSegments"]) == vr.MAX_SEGMENTS
+    for word in ("__ldg(w)", "__ldg(w + 1)", "__ldg(w + 2)", "__ldg(w + 3)",
+                 "__ldg(w + 4 + i / 2)", "__ldg(w + 4 + npack)",
+                 "__ldg(w + 5 + npack + e / 2)"):
+        assert word in src, word
+    S = tv.MAX_SEGMENTS_PER_BLOCK
+    for W in (0, 1, 67, 109):
+        assert tv.horizon_dyn_cols(W) == 4 + (S + 1) // 2 + 1 + (W + 1) // 2
 
 
 # ---------------------------------------------------------------- voice post
@@ -228,10 +319,8 @@ def test_voice_contrib_windows_is_prep_fetch_post(fetch):
             samples_per_tick=250.0))))))
     sound_t = torch.from_numpy(sound)
     peak, contrib = tv.voice_contrib(sound_t, prog, B, fetch=fetch)
-    pos_local, alpha, g, valid = vr.voice_prep_plain(prog, B)
-    interp = tv.fetch_interp(sound_t, pos_local, alpha,
-                             prog.win_blk_a.contiguous(),
-                             prog.win_blk_b.contiguous())
+    pos_local, alpha, g, valid, win_a, win_b = vr.voice_prep_plain(prog, B)
+    interp = tv.fetch_interp(sound_t, pos_local, alpha, win_a, win_b)
     want_peak, want = vr.voice_post_plain(interp, g, valid, prog.pan)
     assert torch.equal(contrib, want) and torch.equal(peak, want_peak)
 
@@ -243,7 +332,7 @@ def ref_strips(packed: np.ndarray) -> ref_mixer.StripParams:
     return ref_mixer.StripParams(*packed)
 
 
-@pytest.mark.parametrize("B", [128, 130, 1024])
+@pytest.mark.parametrize("B", [128, 130, 1024, 16512])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_finish_plain_matches_jax(B, seed):
     mix, strips = finish_inputs(seed, 1, B)
@@ -333,6 +422,12 @@ def _prep():
         device_program(hostile_program(2, 12, 128)), 128)
 
 
+def _prep_slice():
+    return vr.voice_prep_slice, vr.voice_prep_slice_plain, (
+        device_program(hostile_program(3, 12, 128, 3)),
+        torch.from_numpy(hostile_dynamics(3, 12, 128, 4, 3)), 2, 128)
+
+
 def _post():
     return vr.voice_post, vr.voice_post_plain, post_inputs(2, 12, 128)
 
@@ -341,7 +436,7 @@ def _finish():
     return fin.finish, fin.finish_plain, finish_inputs(2, 2, 128)
 
 
-@pytest.mark.parametrize("case", [_prep, _post, _finish])
+@pytest.mark.parametrize("case", [_prep, _prep_slice, _post, _finish])
 def test_wrapper_on_cpu_is_the_plain_version(case):
     wrapper, plain, args = case()
     before = launch_tally.counts()
@@ -350,7 +445,7 @@ def test_wrapper_on_cpu_is_the_plain_version(case):
     assert launch_tally.counts() == before
 
 
-@pytest.mark.parametrize("case", [_prep, _post, _finish])
+@pytest.mark.parametrize("case", [_prep, _prep_slice, _post, _finish])
 def test_wrapper_refuses_other_devices(case):
     wrapper, _, args = case()
 
@@ -363,6 +458,39 @@ def test_wrapper_refuses_other_devices(case):
 
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*(meta(a) for a in args))
+
+
+def test_argument_checks_take_any_reset_count_and_block_size():
+    """The wrappers' checks (run before a launch, no card needed) take the
+    W = 109 resets of B=16512 at 48 kHz and a 16512-frame finish, and
+    refuse what the kernels do not take."""
+    from libzl_tpu_torch.constants import bq_extra_resets
+
+    W = bq_extra_resets(16512, 48000)
+    assert W == 109
+    prog = device_program(hostile_program(5, 4, 64, W))
+    cols, S, got_w = vr.prep_columns(prog)
+    assert (S, got_w) == (tv.MAX_SEGMENTS_PER_BLOCK, W)
+    assert cols.ptr[vr.PREP_COLUMNS.index("bq_reset")] == \
+        prog.bq_reset.data_ptr()
+    assert cols.stride[0] == prog.active.stride(0)
+    D = tv.horizon_dyn_cols(W)
+    dyn = torch.from_numpy(hostile_dynamics(5, 4, 64, 3, W))
+    assert vr.slice_offset(prog, dyn, 2) == 1 + D
+    mix, strips = finish_inputs(5, 1, 16512)
+    assert fin.check_finish(mix, strips) == (1, 12, 16512)
+    with pytest.raises(ValueError):
+        vr.prep_columns(prog._replace(gain=prog.gain.double()))
+    with pytest.raises(ValueError):
+        vr.slice_offset(prog, dyn, 0)
+    with pytest.raises(ValueError):
+        vr.slice_offset(prog, dyn, 3)             # past the dynamics
+    with pytest.raises(ValueError):
+        vr.slice_offset(prog, dyn[:, ::2], 1)     # words not adjacent
+    with pytest.raises(ValueError):
+        fin.check_finish(mix[:, :, :0], strips)
+    with pytest.raises(ValueError):
+        fin.check_finish(mix, strips[:, :10])
 
 
 def test_every_kernel_is_registered():
@@ -398,8 +526,20 @@ def test_launch_tally_counts_tallies_and_adds():
 def test_voice_prep_bound_counts_each_byte_once():
     prog = device_program(hostile_program(0, 10, 64, 3))
     b = roofline.voice_prep_bound(prog, 64)
-    assert b["bytes"] == 10 * (22 + 3 * 4 + 3) * 4 + 13 * 10 * 64
+    assert b["bytes"] == 10 * (22 + 3 * 4 + 3) * 4 + 13 * 10 * 64 + 8 * 10
     assert b["bound_by"] == "bytes" and b["bound_ms"] > 0
+
+
+def test_voice_prep_slice_bound_counts_each_byte_once():
+    """A slice reads its D words and istart, and 13 static columns of the
+    base program, and writes what a block's prep writes."""
+    base = device_program(hostile_program(0, 10, 64, 3))
+    dyn = torch.from_numpy(hostile_dynamics(0, 10, 64, 4, 3))
+    b = roofline.voice_prep_slice_bound(base, dyn, 2, 64)
+    D = tv.horizon_dyn_cols(3)
+    assert b["bytes"] == 10 * (13 + 1 + D) * 4 + 13 * 10 * 64 + 8 * 10
+    assert b["bytes"] < roofline.voice_prep_bound(base, 64)["bytes"]
+    assert b["bound_by"] == "bytes"
 
 
 def test_voice_post_bound_counts_each_byte_once():
