@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mixdown-only      # phases 1, 2, the mixdown's 3, 5
     python3 chip_smoke.py --kernels-only      # phases 1, 2, 3
     python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
+    python3 chip_smoke.py --timing-only       # phases 1, 2, 5
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -36,7 +37,10 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    unpack_horizon_slice + the plain prep), anchors included; the post on
    the fetch's taps of those programs, also into a stacked slice and an
    8-byte aligned view; the finish on one block's and a stacked H=16
-   horizon's lane mix at B=128 and 1024, at B=16512 (H=1, 2) and 40000;
+   horizon's lane mix at B=128 and 1024, at B = 1, 31, 33, 255, 257, 4096
+   (H=2), 16384, 16385, 16512 (H=1, 2) and 40000, each also with NaN, +inf
+   and -inf frames (bit-equal, NaN in the same places), and a captured
+   finish graph replayed twice at B=128 and 40000;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
    per-block engine (lookahead=0, voice buckets and ratio ladder off) on
@@ -51,8 +55,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 5. timing      — per-block engine: superblock realtime factor, live-block
    ms, host program and dispatch ms, a torch.profiler pass per geometry
    (device ms and kernels per block beside those of the render before its
-   voice kernels, each kernel's share,
-   device busy share); default engine:
+   voice kernels, each kernel's share, device busy share, and the
+   window's blocks by kind and its renders, so kernels a render); default
+   engine:
    realtime factor and ms/block at both geometries, SLO misses per kind,
    DSP load, the horizon-build / adoption-wait / emit spans, and a paced
    live run (one block per period); kernel and plain fetch ms on
@@ -69,7 +74,8 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    voice post and finish kernels, their plain versions and any --compare
    source of them on the session's last per-block dispatch at B=1024 and
    B=128, the voice prep on slice 1 of a horizon over that program and the
-   finish on a stacked H=16 horizon, each beside its bound;
+   finish on a stacked H=16 horizon and at B=16512 and 40000, each beside
+   its bound;
 6. default engine — the session through the engine's default options
    (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
    "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
@@ -172,6 +178,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -755,12 +762,20 @@ def render_dynamics(rng, V: int, B: int, H: int, W: int, device):
     return torch.from_numpy(dyn).to(device)
 
 
-def finish_inputs(rng, H: int, B: int, device):
+def finish_inputs(rng, H: int, B: int, device, specials: bool = False):
     """A lane mix [H, 12, B, 2] with exact zeros and -0.0 mixed in, and
-    packed strips [5, 11] with muted strips and pans at -1 and +1."""
+    packed strips [5, 11] with muted strips and pans at -1 and +1;
+    `specials`: in the last slice a NaN frame in lane 3, +inf in lane 5,
+    -inf in lane 8, and +inf in lane 10 beside -inf in lane 11 on one frame
+    (the master's inf - inf)."""
     mix = (rng.standard_normal((H, 12, B, 2)) * 0.3).astype(np.float32)
     mix[rng.random(mix.shape) < 0.05] = 0.0
     mix[rng.random(mix.shape) < 0.05] = -0.0
+    if specials:
+        for lane, value, b in ((3, np.nan, B // 2), (5, np.inf, B - 1),
+                               (8, -np.inf, 0), (10, np.inf, B // 3)):
+            mix[-1, lane, b, lane % 2] = value
+        mix[-1, 11, B // 3, 0] = -np.inf
     strips = np.stack([
         rng.uniform(0, 1.2, 11), rng.uniform(0, 1, 11), rng.uniform(0, 1, 11),
         np.concatenate([[-1.0, 1.0], rng.uniform(-1, 1, 9)]),
@@ -770,7 +785,19 @@ def finish_inputs(rng, H: int, B: int, device):
 
 
 def _diff(a, b) -> float:
-    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+    """Max abs difference over the elements that are not NaN in both."""
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    d = d[~(torch.isnan(a) & torch.isnan(b))]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def same_bits(a, b) -> bool:
+    """Equal with NaN in the same places, every other element bit-equal,
+    the sign of zero included."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+            and torch.equal(torch.signbit(a) & ~nan, torch.signbit(b) & ~nan))
 
 
 # (V, B, W) of phase 3's voice kernels: the main path's shapes, a ragged B,
@@ -779,6 +806,15 @@ RENDER_CASES = ((NUM_VOICES, LIVE_BLOCK, 0), (NUM_VOICES, LIVE_BLOCK, 3),
                 (NUM_VOICES, SUPER_BLOCK, 0), (NUM_VOICES, SUPER_BLOCK, 3),
                 (1000, 130, 3), (LARGE_VOICES, LARGE_BLOCK, 67))
 PREP_OUTPUTS = ("pos_local", "alpha", "g", "valid", "win_a", "win_b")
+# (H, B) of the finish's checks (phase 3 and the card tests of
+# tests/test_torch_kernels.py): the main path's block and horizon shapes,
+# ragged B about a warp, a CTA's frames and a master chunk's, the largest
+# unsplit tree, and past it the split (R = 2 and 4 classes a lane)
+FINISH_CASES = ((1, 1), (1, 31), (1, 33), (1, 64), (1, LIVE_BLOCK),
+                (16, LIVE_BLOCK), (1, 130), (16, 130), (1, 255), (1, 257),
+                (1, 1000), (1, SUPER_BLOCK), (16, SUPER_BLOCK), (2, 4096),
+                (1, 16384), (1, 16385), (1, 16512), (2, 16512), (1, 40000),
+                (2, 40000))
 
 
 def _check_prep(got, want, label: str) -> float:
@@ -796,10 +832,11 @@ def phase_render_kernels(device) -> dict:
     slices 1 and H-1 of hostile H=2 and H=16 horizons from their compact
     dynamics (unpack_horizon_slice + the plain prep); the post on the fetch
     kernel's taps of those programs (pan a strided column), also into a
-    slice of a stacked buffer and into an 8-byte aligned view; the finish on
-    one block's and a stacked horizon's lane mix at B=128, 1024 and 16512
-    (each lane's tree split over CTAs) and one block at B=40000. Returns
-    each kernel's max abs error (0)."""
+    slice of a stacked buffer and into an 8-byte aligned view; the finish at
+    FINISH_CASES (past 16384 frames each lane's tree split over CTAs), each
+    also with NaN and +-inf frames (bit-equal with NaN in the same places),
+    and one captured finish graph replayed twice. Returns each kernel's max
+    abs error over the elements not NaN in both (0)."""
     from libzl_tpu_torch.ops import fetch_windows as fw
     from libzl_tpu_torch.ops import finish as fin
     from libzl_tpu_torch.ops import voice_render as vr
@@ -854,18 +891,37 @@ def phase_render_kernels(device) -> dict:
               f"exponential-release voices {int(exp_rows.sum())}), post "
               f"torch.equal (also into a stacked slice and an 8-byte "
               f"aligned view; peak max {float(peak.max()):.4f})")
-    for H, B in ((1, LIVE_BLOCK), (16, LIVE_BLOCK), (1, SUPER_BLOCK),
-                 (16, SUPER_BLOCK), (1, 16512), (2, 16512), (1, 40000)):
-        mix, strips = finish_inputs(rng, H, B, device)
+    for (H, B), specials in itertools.product(FINISH_CASES, (False, True)):
+        mix, strips = finish_inputs(rng, H, B, device, specials)
         got = fin.finish(mix, strips)
         want = fin.finish_plain(mix, strips)
         torch.cuda.synchronize()
         err = max(_diff(a, b) for a, b in zip(got, want))
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"finish differs from plain at H={H} B={B}: {err:.3e}")
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"finish differs from plain at H={H} B={B} "
+              f"specials={specials}: {err:.3e}")
         worst["finish_block"] = max(worst["finish_block"], err)
-        print(f"finish H={H} B={B}: strips, peaks, RMS and master peak "
-              f"torch.equal to plain")
+    print(f"finish at (H, B) = {FINISH_CASES}, each with and without NaN, "
+          f"+inf and -inf frames: strips, peaks, RMS and master peak "
+          f"bit-equal to plain (NaN in the same places, signed zeros)")
+    for H, B in ((2, LIVE_BLOCK), (1, 40000)):
+        mix, strips = finish_inputs(rng, H, B, device, True)
+        want = fin.finish_plain(mix, strips)
+        fin.finish(mix, strips)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fin.finish(mix, strips)
+        for _ in range(2):
+            for out in got:
+                out.fill_(7.0)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(all(same_bits(a, b) for a, b in zip(got, want)),
+                  f"a replayed finish graph differs from plain at H={H} "
+                  f"B={B}")
+        print(f"finish H={H} B={B}: one captured graph replayed twice, "
+              f"bit-equal to plain both times")
     return worst
 
 
@@ -1073,6 +1129,8 @@ def _device_profile(engine, n_blocks: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    renders0 = dict(engine.render_dispatches)
+    kinds0 = {k: v[1] for k, v in engine.stats()["slo_by_kind"].items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_blocks):
@@ -1082,6 +1140,11 @@ def _device_profile(engine, n_blocks: int) -> dict:
         # thread (AudioEngine.capture_trace)
         engine.drain_speculation()
         torch.cuda.synchronize()
+    renders = {k: v - renders0[k]
+               for k, v in engine.render_dispatches.items()}
+    kinds = {k: v[1] - kinds0.get(k, 0)
+             for k, v in engine.stats()["slo_by_kind"].items()
+             if v[1] > kinds0.get(k, 0)}
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in dev)
     if device_us <= 0:
@@ -1093,6 +1156,12 @@ def _device_profile(engine, n_blocks: int) -> dict:
     return {
         "device_ms": device_us / n_blocks / 1e3,
         "kernels": sum(e.count for e in dev) / n_blocks,
+        # what the window ran: its blocks by dispatch kind (per_block, or
+        # horizon / adopt / spec / emit ...) and its renders (block,
+        # horizon; a speculative render included), so kernels a render
+        "blocks": n_blocks,
+        "block_kinds": kinds,
+        "renders": renders,
         "fetch_share": share("fetch_interp_kernel"),
         "mixdown_share": share("lane_mixdown_kernel"),
         **{f"{name}_share": share(f"{name}_kernel")
@@ -1112,7 +1181,12 @@ def _print_profile(card: str, label: str, prof: dict, block_ms: float):
                       for name in ("voice_prep", "fetch", "voice_post",
                                    "mixdown", "finish_block"))
           + f"; device busy {100 * prof['device_ms'] / block_ms:.1f}% of "
-          f"the unprofiled process_block time ({block_ms:.4f} ms)")
+          f"the unprofiled process_block time ({block_ms:.4f} ms); the "
+          f"window's {prof['blocks']} blocks by kind "
+          f"{json.dumps(prof['block_kinds'])}, renders "
+          f"{json.dumps(prof['renders'])}, "
+          + (f"{prof['kernels'] * prof['blocks'] / n:.1f} kernels a render"
+             if (n := sum(prof['renders'].values())) else "no render"))
 
 
 def capture_dispatch(engine) -> dict:
@@ -1137,7 +1211,8 @@ def time_render_kernels(device, card: str, res: dict, session: dict,
     dispatch at B=1024 and B=128 (`session`: capture_dispatch's record by
     B); the voice prep also on slice 1 of a horizon over that program (an
     H=2 dynamics of render_dynamics' draws; no --compare source before this
-    one reads slices), and the finish on a stacked H=16 horizon at B=128;
+    one reads slices), and the finish on a stacked H=16 horizon at B=128
+    and on one block of 16512 and 40000 frames (the split tree);
     each beside its bound (utils/roofline). Keys `<name>_{kernel,plain,
     bound}_ms_<case>`, `<name>_<version>_ms_<case>` and
     `<name>_bound_by_<case>`."""
@@ -1172,10 +1247,13 @@ def time_render_kernels(device, card: str, res: dict, session: dict,
             lambda f=fin_args: fin.finish(*f),
             lambda f=fin_args: fin.finish_plain(*f),
             rl.finish_bound(*fin_args), fin_args)
-    mix, strips = finish_inputs(rng, 16, LIVE_BLOCK, device)
-    cases[("finish_block", f"16x{LIVE_BLOCK}_horizon")] = (
-        lambda: fin.finish(mix, strips), lambda: fin.finish_plain(mix, strips),
-        rl.finish_bound(mix, strips), (mix, strips))
+    for H, B, key in ((16, LIVE_BLOCK, f"16x{LIVE_BLOCK}_horizon"),
+                      (1, 16512, "1x16512_split"),
+                      (1, 40000, "1x40000_split")):
+        args = finish_inputs(rng, H, B, device)
+        cases[("finish_block", key)] = (
+            lambda a=args: fin.finish(*a),
+            lambda a=args: fin.finish_plain(*a), rl.finish_bound(*args), args)
     for (name, key), (kernel, plain, bound, args) in cases.items():
         fns = {"kernel": kernel, "plain": plain}
         want = plain()
@@ -2860,6 +2938,11 @@ def main() -> int:
     ap.add_argument("--graphs-only", action="store_true",
                     help="run phases 1 and 2, then only phase 16 (render "
                          "graphs)")
+    ap.add_argument("--timing-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 5 (timings "
+                         "and device profiles; run from inside another "
+                         "checkout, a copy of this script times that "
+                         "checkout's port)")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="run phases 1 and 2, then only phase 13 across "
                          "every visible card (needs two or more)")
@@ -2913,6 +2996,14 @@ def main() -> int:
         return 0
     check(not {"kernel", "plain", "library", "empty", "copy8", "copy4"}
           & {n for n, _, _ in loaded}, "reserved version name")
+    if opts.timing_only:
+        with _phase("5 timing"):
+            timing = phase_timing(device, card, versions, mix_versions,
+                                  render_versions)
+        print(f"timing: {json.dumps(timing)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     if opts.mixdown_only:
         with _phase("3 kernel (mixdown)"):
             phase_mixdown(device)

@@ -24,24 +24,60 @@
 // muted), contiguous. Outputs: strips_out [3, H, K, B, 2] (dry, wet1,
 // wet2), meters [2, H, L, 2] (peaks, RMS), master_peak [H, 2].
 //
-// Bound: memory. The mix read once and the three strip planes written once
-// (8 B and 3 x 8 x K/L B a lane and frame): at H=1, B=1024 about 0.63 MB,
-// 0.19 us at 3.35 TB/s; an H=16 horizon at B=128 1.3 MB. The float work is
-// ~20 operations a lane and frame.
+// Bound: memory. utils/roofline.py::finish_bound counts the mix read once
+// (8 B a lane and frame), the strips, the three strip planes written once
+// (24 B a strip and frame) and the meters: at H=1, B=1024 369,060 B, 0.110
+// us at 3.35 TB/s (98,304 B of mix, 270,336 of planes); the ~20 float
+// operations a lane and frame take 0.003 us at 67 TFLOP/s. At these sizes
+// a call is one launch and one or two trips to device memory: what the
+// design cuts is the serial chain inside a CTA, not bytes.
 //
-// Design, simple first: a CTA of 256 threads a (job, slice, class), jobs
-// 0..L-1 one lane each (its peak, its squares' tree in shared memory, and
-// for lanes >= 2 its strip), job L the master (the chain over the L lanes,
-// strip 0, the master peak). A thread walks its class's frames 256 apart.
-// The tree splits on the lowest index bit at its root (element i meets
-// element i + P/2, of the same residue mod any R dividing P/2), so with R
-// classes of residue r mod R (frames r, r + R, ...) each class's tree is
-// the first levels of the whole tree restricted to the class, and the whole
-// tree is the same halving tree over the R class sums. Up to P = 16384
-// frames (128 KB of squares) R = 1: one CTA a lane, the tree whole. Past
-// it R = P / 16384 CTAs a lane each write their class's sum and peaks to
-// `partial`, and a second kernel, a CTA a (lane or master, slice), halves
-// the R sums in the same tree and takes the peaks' max.
+// Design. A grid of (L * R lane CTAs and M master CTAs, slices), 256
+// threads a CTA, L the engine's 12 lanes (a compile-time constant; the
+// entry point refuses any other count).
+// - Lane CTA l: lane l's peak and RMS, and for l >= 2 strip l - 1. The
+//   halving tree lies in registers: tree element i (a frame of the lane)
+//   sits at
+//       i = row * 512 + warp * 64 + lane * 2 + e,   e in {0, 1},
+//   so a thread holds frames 2j and 2j + 1 of a row (one 16-byte load of
+//   both channels; a warp reads 512 contiguous bytes). The tree combines
+//   index bits from the highest down, so its levels are, in order: the
+//   row bits, in registers (rows taken in bit-reversed order, q = 0, 1,
+//   ... the row rev(q); a binary counter of partials `Tree` combines rows
+//   q and q + 1, then pairs of those, ... which is the halving of the row
+//   bits), then the 3 warp bits after one shared-memory exchange (warp 0
+//   adds warp w + 4, + 2, + 1 in registers), then the 5 lane bits by
+//   __shfl_down_sync at 16, 8, 4, 2, 1, then e: one add. One barrier a
+//   tree instead of one a level; both channels travel together, and the
+//   peaks' NaN-propagating max rides the same exchange. The tree is padded
+//   to at least 512 elements: adding a zero-padded upper half changes no
+//   bit, since squares are never -0.0 (s + 0 = s for s >= +0, inf, NaN).
+//   (Warps in the low bits keep the loads coalesced: lanes there would
+//   put a warp's frames 8 apart.) A thread loads up to 4 rows at once.
+// - Master CTAs: M = ceil(pairs / 512) chunks of 512 frame pairs a slice,
+//   two pairs a thread, all 2 x 12 of a thread's 16-byte loads issued
+//   before the first add, strip 0 and the chunk's peak. B <= 1024 (the
+//   main path) is one master CTA writing the master peak itself, one
+//   launch: a cluster of 2, 4 or 8 master CTAs folding their peaks through
+//   distributed shared memory measured slower at B=128 and 1024 than one
+//   CTA (PERF.md section 6). M > 1: each chunk's peak goes to `partial`
+//   and the second pass folds them.
+// - Past 16384 frames a lane's tree splits into R = P / 16384 residue
+//   classes (frames r, r + R, ...): the tree splits on the lowest index
+//   bit at its root (element i meets element i + P/2, of the same residue
+//   mod any R dividing P/2), so each class's tree is the first levels of
+//   the whole tree restricted to the class, and the whole tree is the same
+//   halving tree over the R class sums. A lane CTA a class writes its sum
+//   and peaks to `partial`; a second kernel halves the R sums in the same
+//   register schedule. Those loads are strided (scalar), so there the lane
+//   CTAs only read, and the master CTAs, which hold every lane's frames of
+//   their pairs in registers, write all the strips, coalesced. The second
+//   pass, a kernel of its own, runs when R > 1 or M > 1 (B > 1024): a CTA
+//   a (lane, slice) and one a slice for the master's chunks; no float
+//   atomics, nothing left behind for a graph replay to reset.
+// - Frame pairs move as float4 when B is even and the mix and the planes
+//   are 16-byte aligned (the main path), else as scalars, same schedule;
+//   a split tree's class loads always as scalars.
 //
 // The kernels allocate nothing, never synchronise, and launch on the
 // caller's stream; the C entry points return cudaGetLastError().
@@ -56,8 +92,22 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRow = 2 * kThreads;    // tree elements a register row
 constexpr int kFirstChannelLane = 2;  // lanes 2.. feed strips 1..
-constexpr int64_t kMaxClass = 16384;  // frames of a CTA's tree, classes
+constexpr int kLanes = 12;            // the engine's lanes
+constexpr int64_t kMaxClass = 16384;  // elements of one CTA's tree
+constexpr int kLevels = 6;            // partials: rows up to kMaxClass/kRow
+constexpr int kBatch = 4;             // rows a thread loads at once
+constexpr int kPairs = 2;             // frame pairs a master thread
+constexpr int kMasterPairs = kPairs * kThreads;  // a master CTA's pairs
+static_assert(kMaxClass / kRow <= (1 << (kLevels - 1)), "Tree too short");
+
+// floats of the lane partials ([H][L][R][2] peaks, then sums) when R > 1
+__host__ __device__ __forceinline__ int64_t lane_partials(int64_t H,
+                                                          int64_t L,
+                                                          int64_t R) {
+  return R > 1 ? H * L * R * 4 : 0;
+}
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
@@ -67,202 +117,403 @@ __device__ __forceinline__ float clamp_max_f(float x, float hi) {
   return x != x ? x : fminf(x, hi);
 }
 
-// the CTA's max of x; every thread gets it
-__device__ float block_max(float x, float* scratch) {
-  for (int off = 16; off > 0; off /= 2)
-    x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
-  __syncthreads();  // scratch is free again
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = x;
-  __syncthreads();
-  float m = scratch[0];
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 sq4(float4 a) {
+  return make_float4(__fmul_rn(a.x, a.x), __fmul_rn(a.y, a.y),
+                     __fmul_rn(a.z, a.z), __fmul_rn(a.w, a.w));
+}
+
+// the running peaks of channels 0 and 1 over a frame pair
+__device__ __forceinline__ void fold_peaks(float4 x, float& p0, float& p1) {
+  p0 = nan_max(p0, nan_max(fabsf(x.x), fabsf(x.z)));
+  p1 = nan_max(p1, nan_max(fabsf(x.y), fabsf(x.w)));
+}
+
+// frames b0 and b1 of a lane's [B, 2] row as {b0 c0, b0 c1, b1 c0, b1 c1},
+// 0 past B; kVec: b1 = b0 + 1, b0 even, B even, the row 16-byte aligned
+template <bool kVec>
+__device__ __forceinline__ float4 load_pair(const float* row, int b0, int b1,
+                                            int B) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kVec) {
+    if (b0 < B) v = __ldg(reinterpret_cast<const float4*>(row + 2 * b0));
+    return v;
+  }
+  if (b0 < B) {
+    v.x = __ldg(row + 2 * b0);
+    v.y = __ldg(row + 2 * b0 + 1);
+  }
+  if (b1 < B) {
+    v.z = __ldg(row + 2 * b1);
+    v.w = __ldg(row + 2 * b1 + 1);
+  }
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_pair(float* row, int b0, int b1, int B,
+                                           float4 v) {
+  if (kVec) {
+    if (b0 < B) *reinterpret_cast<float4*>(row + 2 * b0) = v;
+    return;
+  }
+  if (b0 < B) {
+    row[2 * b0] = v.x;
+    row[2 * b0 + 1] = v.y;
+  }
+  if (b1 < B) {
+    row[2 * b1] = v.z;
+    row[2 * b1 + 1] = v.w;
+  }
+}
+
+// strip k's pan-and-mute scales and its three send amounts
+struct Strip {
+  float scale0, scale1, dry, wet1, wet2;
+};
+
+__device__ __forceinline__ Strip load_strip(const float* strips, int K,
+                                            int k) {
+  const float pan = strips[3 * K + k];
+  const float gate = __fsub_rn(1.0f, strips[4 * K + k]);
+  return {__fmul_rn(clamp_max_f(__fsub_rn(1.0f, pan), 1.0f), gate),
+          __fmul_rn(clamp_max_f(__fadd_rn(1.0f, pan), 1.0f), gate),
+          strips[k], strips[K + k], strips[2 * K + k]};
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float s) {
+  return make_float4(__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s),
+                     __fmul_rn(a.w, s));
+}
+
+// a frame pair's three sends into the planes (out: the dry plane's row,
+// `plane` floats to the next); returns the dry send
+template <bool kVec>
+__device__ __forceinline__ float4 write_sends(const Strip& s, float4 x,
+                                              float* out, int64_t plane,
+                                              int b0, int b1, int B) {
+  const float4 y = make_float4(__fmul_rn(x.x, s.scale0),
+                               __fmul_rn(x.y, s.scale1),
+                               __fmul_rn(x.z, s.scale0),
+                               __fmul_rn(x.w, s.scale1));
+  const float4 dry = mul4(y, s.dry);
+  store_pair<kVec>(out, b0, b1, B, dry);
+  store_pair<kVec>(out + plane, b0, b1, B, mul4(y, s.wet1));
+  store_pair<kVec>(out + 2 * plane, b0, b1, B, mul4(y, s.wet2));
+  return dry;
+}
+
+// The register levels of the tree: rows pushed in bit-reversed order, q =
+// 0, 1, ...; part[k] holds the partial of the last 2^k rows pushed once
+// bit k of the count is set, so row q meets row q + 1 first (rows rev(q)
+// and rev(q) + n/2: the halving of the top row bit), then pairs meet pairs,
+// the earlier always the left operand. After n = 2^d rows part[d] holds
+// the register levels' sum.
+struct Tree {
+  float4 part[kLevels];
+
+  __device__ __forceinline__ void push(int q, float4 v) {
+    bool carry = true;  // static indices only: part stays in registers
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = nan_max(m, scratch[w]);
+    for (int k = 0; k < kLevels; ++k) {
+      if (carry && ((q >> k) & 1)) {
+        v = add4(part[k], v);
+      } else if (carry) {
+        part[k] = v;
+        carry = false;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float4 sum(int d) const {
+    float4 s = part[0];
+#pragma unroll
+    for (int k = 1; k < kLevels; ++k)
+      if (k == d) s = part[k];
+    return s;
+  }
+};
+
+// row q of the bit-reversed order of n = 2^d rows
+__device__ __forceinline__ int reversed_row(int q, int d) {
+  return d == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(q)) >>
+                                       (32 - d));
+}
+
+// the warp's peaks, every lane
+__device__ __forceinline__ void warp_peaks(float& p0, float& p1) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    p0 = nan_max(p0, __shfl_xor_sync(0xffffffffu, p0, off));
+    p1 = nan_max(p1, __shfl_xor_sync(0xffffffffu, p1, off));
+  }
+}
+
+struct Exchange {
+  float4 sq[kWarps][32];  // each thread's register-level sums
+  float2 peak[kWarps];    // each warp's peaks
+};
+
+struct Meter {
+  float sum0, sum1, peak0, peak1;
+};
+
+// The tree's warp, lane and e levels and the CTA's peaks, from each
+// thread's register-level sum `v` (elements w * 64 + lane * 2 + e) and
+// peaks: one barrier; the result is thread 0's (the other threads' is
+// unspecified)
+__device__ __forceinline__ Meter cta_meter(float4 v, float p0, float p1,
+                                           Exchange& x) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  warp_peaks(p0, p1);
+  x.sq[w][lane] = v;
+  if (lane == 0) x.peak[w] = make_float2(p0, p1);
+  __syncthreads();
+  Meter m = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (w != 0) return m;
+  float4 s[kWarps];
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) s[k] = x.sq[k][lane];
+#pragma unroll
+  for (int half = kWarps / 2; half >= 1; half /= 2)
+#pragma unroll
+    for (int k = 0; k < half; ++k) s[k] = add4(s[k], s[k + half]);
+  v = s[0];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float4 o = make_float4(__shfl_down_sync(0xffffffffu, v.x, off),
+                                 __shfl_down_sync(0xffffffffu, v.y, off),
+                                 __shfl_down_sync(0xffffffffu, v.z, off),
+                                 __shfl_down_sync(0xffffffffu, v.w, off));
+    v = add4(v, o);
+  }
+  m.sum0 = __fadd_rn(v.x, v.z);
+  m.sum1 = __fadd_rn(v.y, v.w);
+  m.peak0 = x.peak[0].x;
+  m.peak1 = x.peak[0].y;
+#pragma unroll
+  for (int k = 1; k < kWarps; ++k) {
+    m.peak0 = nan_max(m.peak0, x.peak[k].x);
+    m.peak1 = nan_max(m.peak1, x.peak[k].y);
+  }
   return m;
 }
 
-// the halving tree of squares[0..n) and squares[n..2n), both channels at
-// once, into squares[0] and squares[n]; ends with the CTA synchronised
-__device__ void tree_sum(float* squares, int n) {
-  for (int half = n / 2; half >= 1; half /= 2) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * half; i += kThreads) {
-      float* s = squares + (i < half ? 0 : n);
-      const int j = i < half ? i : i - half;
-      s[j] = __fadd_rn(s[j], s[j + half]);
-    }
-  }
-  __syncthreads();
-}
-
-// lane l's RMS from its squares' sum
 __device__ __forceinline__ float rms(float sum, int B) {
   return __fsqrt_rn(__fdiv_rn(sum, static_cast<float>(B)));
 }
 
-// kSplit: R > 1 classes a lane, each writing its partials; else R = 1 and
-// the CTA writes the lane's meters (the unsplit kernel keeps its int
-// arithmetic: the split one measured slower at B <= 16384)
-template <bool kSplit>
+// rows of a tree of Q elements (a power of two) and their log2
+__device__ __forceinline__ void tree_rows(int Q, int* n, int* d) {
+  *n = Q > kRow ? Q / kRow : 1;
+  *d = __ffs(*n) - 1;
+}
+
+// The master of slice h, chunk c: frame pairs [2i, 2i + 1] for i in
+// [c * kMasterPairs, (c + 1) * kMasterPairs), kPairs a thread, all kLanes
+// lanes' loads of both pairs issued before the first add; strip 0 and the
+// chunk's peak, into `peak` (the slice's master peak when it has one
+// chunk, else the chunk's partial).
+template <bool kVec, bool kAllStrips>
+__device__ __forceinline__ void master_chunk(
+    const float* hmix, const float* strips, float* out, int64_t plane,
+    float* peak, Exchange& x, int B, int c) {
+  constexpr int K = kLanes - 1;
+  const int t = threadIdx.x;
+  const int64_t row = 2 * static_cast<int64_t>(B);
+  const Strip s = load_strip(strips, K, 0);
+  const int pairs = (B + 1) / 2;
+  int b0[kPairs];
+  float4 v[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = c * kMasterPairs + j * kThreads + t;
+    b0[j] = i < pairs ? 2 * i : B;
+  }
+  float4 lanes[kPairs][kLanes];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j)
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+      lanes[j][l] = load_pair<kVec>(hmix + l * row, b0[j], b0[j] + 1, B);
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    v[j] = lanes[j][0];
+#pragma unroll
+    for (int l = 1; l < kLanes; ++l) v[j] = add4(v[j], lanes[j][l]);
+    // kAllStrips: lane l's sends too, strip l - 1, from the loads in hand
+#pragma unroll
+    for (int l = kFirstChannelLane; kAllStrips && l < kLanes; ++l)
+      write_sends<kVec>(load_strip(strips, K, l - 1), lanes[j][l],
+                        out + (l - 1) * row, plane, b0[j], b0[j] + 1, B);
+  }
+  float p0 = -INFINITY, p1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    if (b0[j] >= B) continue;
+    float4 dry = write_sends<kVec>(s, v[j], out, plane, b0[j], b0[j] + 1, B);
+    if (b0[j] + 1 >= B) dry.z = dry.w = 0.0f;  // no frame b0 + 1
+    fold_peaks(dry, p0, p1);
+  }
+  const Meter m = cta_meter(make_float4(0.0f, 0.0f, 0.0f, 0.0f), p0, p1, x);
+  if (t == 0) {
+    peak[0] = m.peak0;
+    peak[1] = m.peak1;
+  }
+}
+
+// Lane CTAs x < L * R (lane x / R, residue class x % R), master CTAs x in
+// [L * R, L * R + M) (M chunks of kMasterPairs frame pairs); slices on y.
+// kSplit: each lane CTA a class writes its partials ([H][L][R][2] peaks,
+// then [H][L][R][2] sums), else R = 1 and the lane CTA writes its meters.
+// M > 1: each master chunk writes its peak to [H][M][2] after the lane
+// partials.
+template <bool kVec, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 finish_block_kernel(const float* __restrict__ mix,
                     const float* __restrict__ strips,
                     float* __restrict__ strips_out,
                     float* __restrict__ meters,
                     float* __restrict__ master_peak,
-                    float* __restrict__ partial, int H, int L, int B, int Q,
-                    int R) {
-  extern __shared__ float squares[];  // [2][Q]
-  __shared__ float scratch[kWarps];
-  const int job = blockIdx.x;  // a lane, or L: the master
+                    float* __restrict__ partial, int H, int B, int Q, int R,
+                    int M) {
+  constexpr int L = kLanes, K = L - 1;
+  __shared__ Exchange x;
   const int64_t h = blockIdx.y;
-  const int r = kSplit ? blockIdx.z : 0;  // the residue class r mod R
-  const int t = threadIdx.x;
-  const int K = L - 1;
   const int64_t row = 2 * static_cast<int64_t>(B);  // a lane's floats
   const float* hmix = mix + h * L * row;
   const int64_t plane = static_cast<int64_t>(H) * K * row;  // dry->wet1
-  const bool master = job == L;
-  const int strip = master ? 0 : (job >= kFirstChannelLane ? job - 1 : -1);
-
-  float scale0 = 0.0f, scale1 = 0.0f, dry = 0.0f, wet1 = 0.0f, wet2 = 0.0f;
-  if (strip >= 0) {
-    const float pan = strips[3 * K + strip];
-    const float gate = __fsub_rn(1.0f, strips[4 * K + strip]);
-    scale0 = __fmul_rn(clamp_max_f(__fsub_rn(1.0f, pan), 1.0f), gate);
-    scale1 = __fmul_rn(clamp_max_f(__fadd_rn(1.0f, pan), 1.0f), gate);
-    dry = strips[strip];
-    wet1 = strips[K + strip];
-    wet2 = strips[2 * K + strip];
-  }
-  float* out = strip >= 0 ? strips_out + (h * K + strip) * row : nullptr;
-
-  float peak0 = -INFINITY, peak1 = -INFINITY;
-  for (int m = t; m < Q; m += kThreads) {
-    const int64_t b = kSplit ? r + static_cast<int64_t>(R) * m : m;
-    if (b >= B) {  // the tree's zero padding
-      if (!master) squares[m] = squares[Q + m] = 0.0f;
-      continue;
-    }
-    float x0, x1;
-    if (master) {
-      x0 = hmix[2 * b];
-      x1 = hmix[2 * b + 1];
-      for (int l = 1; l < L; ++l) {
-        x0 = __fadd_rn(x0, hmix[l * row + 2 * b]);
-        x1 = __fadd_rn(x1, hmix[l * row + 2 * b + 1]);
-      }
-    } else {
-      x0 = hmix[job * row + 2 * b];
-      x1 = hmix[job * row + 2 * b + 1];
-      peak0 = nan_max(peak0, fabsf(x0));
-      peak1 = nan_max(peak1, fabsf(x1));
-      squares[m] = __fmul_rn(x0, x0);
-      squares[Q + m] = __fmul_rn(x1, x1);
-    }
-    if (strip >= 0) {
-      const float s0 = __fmul_rn(x0, scale0), s1 = __fmul_rn(x1, scale1);
-      const float d0 = __fmul_rn(s0, dry), d1 = __fmul_rn(s1, dry);
-      out[2 * b] = d0;
-      out[2 * b + 1] = d1;
-      out[plane + 2 * b] = __fmul_rn(s0, wet1);
-      out[plane + 2 * b + 1] = __fmul_rn(s1, wet1);
-      out[2 * plane + 2 * b] = __fmul_rn(s0, wet2);
-      out[2 * plane + 2 * b + 1] = __fmul_rn(s1, wet2);
-      if (master) {  // the master is strip 0's dry send
-        peak0 = nan_max(peak0, fabsf(d0));
-        peak1 = nan_max(peak1, fabsf(d1));
-      }
-    }
-  }
-  peak0 = block_max(peak0, scratch);
-  peak1 = block_max(peak1, scratch);
-  // R > 1: [H][L + 1][R][2] partial peaks (the master's at job L), then
-  // [H][L][R][2] partial sums
-  float* pk = kSplit ? partial + ((h * (L + 1) + job) * R + r) * 2
-                     : master_peak + 2 * h;
-  if (master) {
-    if (t == 0) {
-      pk[0] = peak0;
-      pk[1] = peak1;
-    }
+  if (static_cast<int>(blockIdx.x) >= L * R) {
+    const int c = blockIdx.x - L * R;
+    float* peak = M == 1 ? master_peak + 2 * h
+                         : partial + lane_partials(H, L, R) + (h * M + c) * 2;
+    master_chunk<kVec, kSplit>(hmix, strips, strips_out + h * K * row, plane,
+                               peak, x, B, c);
     return;
   }
-  tree_sum(squares, Q);
-  const int64_t m = (h * L + job) * 2;
+  const int job = kSplit ? blockIdx.x / R : blockIdx.x;  // the lane
+  const int r = kSplit ? blockIdx.x % R : 0;
+  // kSplit: a class's frames are R apart, so the master CTAs, which hold
+  // every lane's frames in their registers, write the strips coalesced
+  constexpr bool kLaneVec = kVec && !kSplit;
+  const float* src = hmix + job * row;
+  const bool has_strip = !kSplit && job >= kFirstChannelLane;
+  const int strip = job - 1;
+  Strip s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (has_strip) s = load_strip(strips, K, strip);
+  float* out = has_strip ? strips_out + (h * K + strip) * row : nullptr;
+
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  int n, d;
+  tree_rows(Q, &n, &d);
+  // element m = row * kRow + base (+ 1) is frame r + R * m (kSplit) or m
+  const int base = w * 64 + lane * 2;
+  const int step = kSplit ? R : 1;
+  Tree tree;
+  float p0 = -INFINITY, p1 = -INFINITY;
+  for (int q0 = 0; q0 < n; q0 += kBatch) {  // kBatch rows' loads in flight
+    int b0[kBatch];
+    float4 v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int m = reversed_row(q0 + j, d) * kRow + base;
+      b0[j] = q0 + j >= n ? B : kSplit ? r + R * m : m;
+      v[j] = load_pair<kLaneVec>(src, b0[j], b0[j] + step, B);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (q0 + j >= n) break;
+      fold_peaks(v[j], p0, p1);  // padding reads 0: no peak moves
+      tree.push(q0 + j, sq4(v[j]));
+      if (has_strip)
+        write_sends<kLaneVec>(s, v[j], out, plane, b0[j], b0[j] + step, B);
+    }
+  }
+  const Meter m = cta_meter(tree.sum(d), p0, p1, x);
+  if (threadIdx.x != 0) return;
+  const int64_t at = (h * L + job) * 2;
   if (kSplit) {
-    if (t < 2) {
-      pk[t] = t == 0 ? peak0 : peak1;
-      partial[static_cast<int64_t>(H) * (L + 1) * R * 2 +
-              ((h * L + job) * R + r) * 2 + t] = squares[t * Q];
-    }
+    float* pk = partial + ((h * L + job) * R + r) * 2;
+    float* sq = pk + static_cast<int64_t>(H) * L * R * 2;
+    pk[0] = m.peak0;
+    pk[1] = m.peak1;
+    sq[0] = m.sum0;
+    sq[1] = m.sum1;
     return;
   }
-  if (t == 0) {
-    meters[m] = peak0;
-    meters[m + 1] = peak1;
-  }
-  if (t < 2) {
-    const int64_t rms_at = static_cast<int64_t>(H) * L * 2;  // peaks -> RMS
-    meters[rms_at + m + t] = rms(squares[t * Q], B);
-  }
+  const int64_t rms_at = static_cast<int64_t>(H) * L * 2;  // peaks -> RMS
+  meters[at] = m.peak0;
+  meters[at + 1] = m.peak1;
+  meters[rms_at + at] = rms(m.sum0, B);
+  meters[rms_at + at + 1] = rms(m.sum1, B);
 }
 
-// R > 1: a (lane or master, slice)'s R partials -> its meters
+// The second pass, a CTA a (job, slice): R > 1, jobs 0..L-1, a lane's R
+// class partials -> its meters, the R sums halved in the lane kernel's
+// register schedule (element m: class m); M > 1, job L, the master chunks'
+// peaks -> the master peak. `first`: the first job (L when R = 1).
 __global__ void __launch_bounds__(kThreads)
 finish_combine_kernel(const float* __restrict__ partial,
                       float* __restrict__ meters,
-                      float* __restrict__ master_peak, int H, int L, int B,
-                      int R) {
-  extern __shared__ float sums[];  // [2][R]
-  __shared__ float scratch[kWarps];
-  const int job = blockIdx.x;
+                      float* __restrict__ master_peak, int H, int B, int R,
+                      int M, int first) {
+  constexpr int L = kLanes;
+  __shared__ Exchange x;
+  const int job = first + blockIdx.x;
   const int64_t h = blockIdx.y;
-  const int t = threadIdx.x;
-  const float* pk = partial + (h * (L + 1) + job) * R * 2;
-  const float* sq = partial + static_cast<int64_t>(H) * (L + 1) * R * 2 +
-                    (h * L + job) * R * 2;
-  float peak0 = -INFINITY, peak1 = -INFINITY;
-  for (int r = t; r < R; r += kThreads) {
-    peak0 = nan_max(peak0, pk[2 * r]);
-    peak1 = nan_max(peak1, pk[2 * r + 1]);
-    if (job < L) {
-      sums[r] = sq[2 * r];
-      sums[R + r] = sq[2 * r + 1];
-    }
-  }
-  peak0 = block_max(peak0, scratch);
-  peak1 = block_max(peak1, scratch);
+  float p0 = -INFINITY, p1 = -INFINITY;
   if (job == L) {
-    if (t == 0) {
-      master_peak[2 * h] = peak0;
-      master_peak[2 * h + 1] = peak1;
+    const float* pk = partial + lane_partials(H, L, R) + h * M * 2;
+    for (int c = threadIdx.x; c < M; c += kThreads) {
+      p0 = nan_max(p0, pk[2 * c]);
+      p1 = nan_max(p1, pk[2 * c + 1]);
+    }
+    const Meter m = cta_meter(make_float4(0.0f, 0.0f, 0.0f, 0.0f), p0, p1,
+                              x);
+    if (threadIdx.x == 0) {
+      master_peak[2 * h] = m.peak0;
+      master_peak[2 * h + 1] = m.peak1;
     }
     return;
   }
-  tree_sum(sums, R);
-  const int64_t m = (h * L + job) * 2;
-  if (t == 0) {
-    meters[m] = peak0;
-    meters[m + 1] = peak1;
+  const float* pk = partial + (h * L + job) * R * 2;
+  const float* sq = pk + static_cast<int64_t>(H) * L * R * 2;
+  const int base = (threadIdx.x / 32) * 64 + (threadIdx.x % 32) * 2;
+  int n, d;
+  tree_rows(R, &n, &d);
+  Tree tree;
+  for (int q = 0; q < n; ++q) {
+    const int m = reversed_row(q, d) * kRow + base;
+    // R a power of two >= 2: classes m, m + 1 both present or both not
+    fold_peaks(load_pair<true>(pk, m, m + 1, R), p0, p1);
+    tree.push(q, load_pair<true>(sq, m, m + 1, R));
   }
-  if (t < 2)
-    meters[static_cast<int64_t>(H) * L * 2 + m + t] = rms(sums[t * R], B);
+  const Meter m = cta_meter(tree.sum(d), p0, p1, x);
+  if (threadIdx.x != 0) return;
+  const int64_t at = (h * L + job) * 2;
+  const int64_t rms_at = static_cast<int64_t>(H) * L * 2;
+  meters[at] = m.peak0;
+  meters[at + 1] = m.peak1;
+  meters[rms_at + at] = rms(m.sum0, B);
+  meters[rms_at + at + 1] = rms(m.sum1, B);
 }
 
-// P = the power of two at or above B, R classes of Q = P / R frames
-void plan(int64_t B, int64_t* Q, int64_t* R) {
+// P = the power of two at or above B, R classes of Q = P / R frames, M
+// master chunks
+void plan(int64_t B, int64_t* Q, int64_t* R, int64_t* M) {
   int64_t P = 1;
   while (P < B) P *= 2;
   *Q = P < kMaxClass ? P : kMaxClass;
   *R = P / *Q;
+  *M = ((B + 1) / 2 + kMasterPairs - 1) / kMasterPairs;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -271,49 +522,48 @@ extern "C" {
 
 // floats of `partial` a finish of this shape needs (0: none)
 int64_t zl_finish_block_scratch(int64_t H, int64_t L, int64_t B) {
-  int64_t Q, R;
-  plan(B, &Q, &R);
-  return R > 1 ? H * (2 * L + 1) * R * 2 : 0;
+  int64_t Q, R, M;
+  plan(B, &Q, &R, &M);
+  return lane_partials(H, L, R) + (M > 1 ? H * M * 2 : 0);
 }
 
 int zl_finish_block(const void* mix, const void* strips, void* strips_out,
                     void* meters, void* master_peak, void* partial,
                     int64_t H, int64_t L, int64_t B, void* stream) {
   if (H <= 0) return static_cast<int>(cudaGetLastError());
-  if (H > 65535 || L <= kFirstChannelLane || L > 1024 || B <= 0 ||
-      B > INT_MAX / 2)
+  if (H > 65535 || L != kLanes || B <= 0 || B > INT_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  int64_t Q, R;
-  plan(B, &Q, &R);
-  // the second pass's tree of R sums lies in shared memory too
-  if (R > kMaxClass || (R > 1 && partial == nullptr))
+  int64_t Q, R, M;
+  plan(B, &Q, &R, &M);
+  // the second pass's tree of R sums takes the same register schedule
+  if (R > kMaxClass || ((R > 1 || M > 1) && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t smem = 2 * static_cast<size_t>(Q) * sizeof(float);
-  const auto kernel =
-      R > 1 ? finish_block_kernel<true> : finish_block_kernel<false>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(L + 1), static_cast<unsigned>(H),
-                  static_cast<unsigned>(R));
-  kernel<<<grid, kThreads, smem, s>>>(
+  const dim3 grid(static_cast<unsigned>(kLanes * R + M),
+                  static_cast<unsigned>(H));
+  const bool vec = B % 2 == 0 && aligned16(mix) && aligned16(strips_out);
+  const auto kernel = R > 1 ? (vec ? finish_block_kernel<true, true>
+                                  : finish_block_kernel<false, true>)
+                      : vec ? finish_block_kernel<true, false>
+                            : finish_block_kernel<false, false>;
+  kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(mix), static_cast<const float*>(strips),
       static_cast<float*>(strips_out), static_cast<float*>(meters),
       static_cast<float*>(master_peak), static_cast<float*>(partial),
-      static_cast<int>(H), static_cast<int>(L), static_cast<int>(B),
-      static_cast<int>(Q), static_cast<int>(R));
-  if (R == 1) return static_cast<int>(cudaGetLastError());
-  e = cudaGetLastError();
+      static_cast<int>(H), static_cast<int>(B), static_cast<int>(Q),
+      static_cast<int>(R), static_cast<int>(M));
+  if (R == 1 && M == 1) return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  smem = 2 * static_cast<size_t>(R) * sizeof(float);
-  e = allow_smem(finish_combine_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  finish_combine_kernel<<<dim3(static_cast<unsigned>(L + 1),
+  const int64_t first = R > 1 ? 0 : kLanes;
+  const int64_t jobs = (R > 1 ? kLanes : 0) + (M > 1 ? 1 : 0);
+  finish_combine_kernel<<<dim3(static_cast<unsigned>(jobs),
                                static_cast<unsigned>(H)),
-                          kThreads, smem, s>>>(
+                          kThreads, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(meters),
       static_cast<float*>(master_peak), static_cast<int>(H),
-      static_cast<int>(L), static_cast<int>(B), static_cast<int>(R));
+      static_cast<int>(B), static_cast<int>(R), static_cast<int>(M),
+      static_cast<int>(first));
   return static_cast<int>(cudaGetLastError());
 }
 

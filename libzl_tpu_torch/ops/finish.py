@@ -34,11 +34,13 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import NUM_SAMPLER_CHANNELS
 from . import launch_tally
 from . import meters as meter_ops
 from . import mixer as mixer_ops
 
 FIRST_CHANNEL_LANE = 2
+LANES = NUM_SAMPLER_CHANNELS  # the kernel's lane count, a constant there
 
 
 def _tree_sum(x):
@@ -79,17 +81,15 @@ def finish_plain(lane_mix, strips_packed) -> tuple:
 
 def check_finish(lane_mix, strips_packed) -> tuple:
     """(H, L, B) of a finish the kernel takes: lane_mix float32 [H, L, B, 2]
-    with L > 2 lanes and B >= 1 frames (any B: past 16384 the kernel splits
-    each lane's tree across CTAs), strips_packed float32 [5, L - 1], both
-    contiguous on lane_mix's device. Raises ValueError otherwise; needs no
-    card."""
+    with L = 12 lanes (the engine's; the kernel is built for that count)
+    and B >= 1 frames (any B: past 16384 the kernel splits each lane's tree
+    across CTAs), strips_packed float32 [5, L - 1], both contiguous on
+    lane_mix's device. Raises ValueError otherwise; needs no card."""
     dev = lane_mix.device
     if lane_mix.dim() != 4 or lane_mix.shape[3] != 2 \
-            or lane_mix.shape[1] <= FIRST_CHANNEL_LANE \
-            or lane_mix.shape[2] < 1:
-        raise ValueError(f"finish: lane_mix must be [H, L, B, 2] with L > "
-                         f"{FIRST_CHANNEL_LANE} and B > 0, got "
-                         f"{tuple(lane_mix.shape)}")
+            or lane_mix.shape[1] != LANES or lane_mix.shape[2] < 1:
+        raise ValueError(f"finish: lane_mix must be [H, {LANES}, B, 2] with "
+                         f"B > 0, got {tuple(lane_mix.shape)}")
     H, L, B = lane_mix.shape[:3]
     for name, t, shape in (("lane_mix", lane_mix, (H, L, B, 2)),
                            ("strips_packed", strips_packed, (5, L - 1))):
@@ -107,10 +107,12 @@ def finish(lane_mix, strips_packed) -> tuple:
     """The finish of `finish_plain`'s contract.
 
     CPU tensors take `finish_plain`. CUDA tensors launch the kernel
-    (csrc/finish_block.cu; past 16384 frames with a second pass that
-    combines each lane's partial trees) on the calling thread's current
-    stream, or raise: a CUDA tensor never reaches the plain version.
-    `finish.launches` counts kernel calls from every thread."""
+    (csrc/finish_block.cu; past 1024 frames with a second pass that folds
+    the master chunks' peaks and, past 16384, combines each lane's partial
+    trees) on the calling thread's current stream, or raise: a CUDA tensor
+    never reaches the plain version.
+    `finish.launches` counts calls from every thread, one a call: a call
+    runs one kernel at B <= 1024 and two past it (the second pass)."""
     dev = lane_mix.device
     if dev.type == "cpu":
         return finish_plain(lane_mix, strips_packed)

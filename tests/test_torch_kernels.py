@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from chip_smoke import same_bits
 from libzl_tpu_torch import _build
 from libzl_tpu_torch.ops import fetch_windows as fw
 from libzl_tpu_torch.ops import finish as fin
@@ -209,7 +211,6 @@ def test_engine_on_card_matches_cpu(B):
     master rtol 1e-5, atol 2e-6 per voice in the densest lane."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    import chip_smoke
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V = 64
@@ -245,7 +246,6 @@ def test_horizon_engine_on_card_matches_per_block():
     once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    import chip_smoke
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V, B = 64, 128
@@ -591,7 +591,6 @@ def test_render_graphs_on_card_match_eager():
     render a replay; each replay counted its kernels' launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    import chip_smoke
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V, B = 64, 128
@@ -640,7 +639,6 @@ def test_mesh_render_graphs_on_card_match_eager(plan):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     if plan == "across-cards" and torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
-    import chip_smoke
     from libzl_tpu_torch.engine.engine import AudioEngine
     from libzl_tpu_torch.engine.graphs import RenderGraphs
     from libzl_tpu_torch.parallel.sharding import make_mesh
@@ -840,19 +838,17 @@ def post_inputs(seed: int, V: int, B: int, device="cpu"):
     return t[0], t[1], t[2], t[3][:, 3]
 
 
-def finish_inputs(seed: int, H: int, B: int, device="cpu"):
-    """A stacked lane mix [H, 12, B, 2] with exact zeros and -0.0 mixed in,
-    and packed strips [5, 11] with muted strips and pans at -1 and +1."""
-    rng = np.random.default_rng(seed)
-    mix = (rng.standard_normal((H, 12, B, 2)) * 0.3).astype(np.float32)
-    mix[rng.random(mix.shape) < 0.05] = 0.0
-    mix[rng.random(mix.shape) < 0.05] = -0.0
-    strips = np.stack([
-        rng.uniform(0, 1.2, 11), rng.uniform(0, 1, 11), rng.uniform(0, 1, 11),
-        np.concatenate([[-1.0, 1.0], rng.uniform(-1, 1, 9)]),
-        (rng.random(11) < 0.2).astype(np.float64)]).astype(np.float32)
-    return (torch.from_numpy(mix).to(device),
-            torch.from_numpy(strips).to(device))
+def finish_inputs(seed: int, H: int, B: int, device="cpu",
+                  specials: bool = False):
+    """chip_smoke.finish_inputs drawn from `seed`: a stacked lane mix
+    [H, 12, B, 2] with exact zeros and -0.0 mixed in, and packed strips
+    [5, 11] with muted strips and pans at -1 and +1. `specials`: a NaN in
+    lane 3, +inf in lane 5 and -inf in lane 8 of the last slice (so the
+    master, strips 2, 4 and 7, their peaks and RMS meet them), one frame
+    each, and +inf in lane 10 beside -inf in lane 11 on one frame (the
+    master's inf - inf)."""
+    return chip_smoke.finish_inputs(np.random.default_rng(seed), H, B,
+                                    device, specials)
 
 
 # (V, B): one voice, a ragged B under and over one CTA row, B over a CTA's
@@ -995,7 +991,6 @@ def test_engine_on_card_at_a_large_block_matches_cpu():
     tolerances (voice peaks atol 2e-6; master rtol 1e-5, atol 2e-6 per
     voice in the densest lane)."""
     _need_card()
-    import chip_smoke
     from libzl_tpu_torch.constants import bq_extra_resets
     from libzl_tpu_torch.engine.engine import AudioEngine
 
@@ -1019,26 +1014,55 @@ def test_engine_on_card_at_a_large_block_matches_cpu():
     assert gpu.fetch_dispatches == {"windows": 3, "gather": 0}
 
 
+FINISH_NAMES = ("dry", "wet1", "wet2", "lane_peaks", "lane_rms",
+                "master_peak")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,B", [(1, 64), (1, 130), (1, 1000), (1, 1024),
-                                 (16, 128), (16, 130), (2, 4096), (1, 16384),
-                                 (1, 16512), (2, 16512), (1, 40000),
-                                 (2, 40000)])
-def test_finish_kernel_matches_plain_on_card(H, B):
-    """Strips, peaks, RMS and master peak torch.equal to the plain version
-    (the master chain and the RMS tree in the spelled order; past 16384
-    frames each lane's tree split over CTAs and combined in a second
-    pass)."""
+@pytest.mark.parametrize("H,B", chip_smoke.FINISH_CASES)
+@pytest.mark.parametrize("specials", [False, True])
+def test_finish_kernel_matches_plain_on_card(H, B, specials):
+    """Strips, peaks, RMS and master peak bit-equal to the plain version,
+    with NaN in the same places (the master chain and the RMS tree in the
+    spelled order; past 16384 frames each lane's tree split over CTAs and
+    combined in a second pass); `specials`: NaN, +inf and -inf frames in
+    some lanes. `finish.launches` counts one a call (past 1024 frames the
+    call runs a second kernel, the second pass)."""
     _need_card()
-    mix, strips = finish_inputs(41, H, B, "cuda")
+    mix, strips = finish_inputs(41, H, B, "cuda", specials)
     before = fin.finish.launches
     got = fin.finish(mix, strips)
     want = fin.finish_plain(mix, strips)
     torch.cuda.synchronize()
     assert fin.finish.launches == before + 1
-    names = ("dry", "wet1", "wet2", "lane_peaks", "lane_rms", "master_peak")
-    for name, a, b in zip(names, got, want):
-        assert torch.equal(a, b), name
+    for name, a, b in zip(FINISH_NAMES, got, want):
+        assert same_bits(a, b), name
+    if specials:
+        assert bool(torch.isnan(want[4][-1, 3]).any())
+        assert bool(torch.isinf(want[3][-1, 5]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [128, 1024, 40000])
+def test_finish_kernel_replays_in_a_graph(B):
+    """The same captured finish replayed twice gives the same bits, equal to
+    the plain version: nothing the kernel leaves behind (a split's scratch,
+    the master chunks' peaks) needs a reset between replays."""
+    _need_card()
+    mix, strips = finish_inputs(43, 2, B, "cuda", True)
+    want = fin.finish_plain(mix, strips)
+    fin.finish(mix, strips)  # built and loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fin.finish(mix, strips)
+    for _ in range(2):
+        for out in got:
+            out.fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(FINISH_NAMES, got, want):
+            assert same_bits(a, b), name
 
 
 @pytest.mark.cuda
@@ -1058,3 +1082,5 @@ def test_voice_kernels_refuse_what_they_do_not_take():
         fin.finish(mix[:, :, ::2], strips)
     with pytest.raises(ValueError):
         fin.finish(mix, strips[:, :10])
+    with pytest.raises(ValueError):  # the kernel's 12 lanes only
+        fin.finish(mix[:, :5].contiguous(), strips[:, :4].contiguous())

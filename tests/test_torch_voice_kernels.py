@@ -491,6 +491,8 @@ def test_argument_checks_take_any_reset_count_and_block_size():
         fin.check_finish(mix[:, :, :0], strips)
     with pytest.raises(ValueError):
         fin.check_finish(mix, strips[:, :10])
+    with pytest.raises(ValueError):             # the kernel's 12 lanes only
+        fin.check_finish(mix[:, :5].contiguous(), strips[:, :4].contiguous())
 
 
 def test_every_kernel_is_registered():
