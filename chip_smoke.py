@@ -9,6 +9,7 @@
     python3 chip_smoke.py --kernels-only      # phases 1, 2, 3
     python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
     python3 chip_smoke.py --timing-only       # phases 1, 2, 5
+    python3 chip_smoke.py --policy-only       # phases 1, 2, 17
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -53,11 +54,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    the mixdown's and the finish's the engines' renders, and no block may
    fall back to gather;
 5. timing      — per-block engine: superblock realtime factor, live-block
-   ms, host program and dispatch ms, a torch.profiler pass per geometry
+   ms, host program and dispatch ms (and the parts of a graph replay:
+   slot wait, staging, replay, clone, unflatten and tally), a
+   torch.profiler pass per geometry
    (device ms and kernels per block beside those of the render before its
    voice kernels, each kernel's share, device busy share, and the
    window's blocks by kind and its renders, so kernels a render); default
-   engine:
+   engine, and beside it the horizon engine where the card's default is
+   the per-block path (lookahead=2 at B=1024):
    realtime factor and ms/block at both geometries, SLO misses per kind,
    DSP load, the horizon-build / adoption-wait / emit spans, and a paced
    live run (one block per period); kernel and plain fetch ms on
@@ -76,14 +80,18 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    B=128, the voice prep on slice 1 of a horizon over that program and the
    finish on a stacked H=16 horizon and at B=16512 and 40000, each beside
    its bound;
-6. default engine — the session through the engine's default options
-   (lookahead horizon, speculative chain, voice buckets, ratio ladder) on
-   "cuda", at B=1024 (H=2) and B=128 (H=16), through a horizon build, at
-   least two adoptions of the chain, and two preemptions (a note-off, then
-   a set_strip, mid-horizon) rebuilt in their event block; every block is
+6. default engine — the session through the engine's default options on
+   "cuda" (voice buckets, ratio ladder; "auto" resolved as CARD_LOOKAHEAD
+   says: the per-block path at B=1024 and B=256, H=16 at B=128), and a
+   horizon engine at each of those B (lookahead=2 at B=1024, 8 at B=256,
+   the default at B=128), through a horizon build, at least two
+   adoptions of the chain, and two preemptions (a note-off, then a
+   set_strip, mid-horizon) rebuilt in their event block; every block is
    compared with a "cpu" engine at lookahead=0 (the rule of phase 4) and
-   with a "cuda" engine at lookahead=0 with the same buckets (max
-   difference printed); the fetch kernel's launches must equal the horizon
+   the horizon engine with a "cuda" engine at lookahead=0 with the same
+   buckets (the default where it is per-block): bit-equal; the options
+   must resolve as CARD_LOOKAHEAD and CARD_LADDER say; the fetch kernel's
+   launches must equal the horizon
    slices and per-block blocks rendered with the windows fetch, the
    mixdown kernel's the horizons and per-block blocks dispatched, no
    gather fallback, no failed speculative build;
@@ -92,7 +100,8 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    WAVs and loaded by clip_new, clip_play and timer_start, an in-memory
    non-pacing sink, 192 blocks with global-playback recording, then 192
    with a `lane:2` port recording added; on "cuda" with the bounce drain at
-   its default (32) and at 1, and on "cpu". The two "cuda" sink streams are
+   its default (CARD_DRAIN, 64) and at 1, and on "cpu". The two "cuda" sink
+   streams are
    bit-equal; both, and the lane recording, agree with "cpu" (phase 4's
    rule); the kernels' launches equal the engines' windows dispatches and
    renders;
@@ -119,8 +128,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 13. mesh        — the north-star session through AudioEngine("cuda:0",
    mesh=make_mesh(devices=["cuda:0"] * k)) for k = 2 and 4, each with
    render graphs (the default: one graph a render) and with render_graphs
-   "off", at B=1024 and B=128, per-block (lookahead=0) and with the default
-   options, every block against the unsharded "cuda" engine of the same
+   "off", at B=1024 and B=128, per-block (lookahead=0) and through the
+   horizon (lookahead=2 at B=1024, the default at B=128),
+   every block against the unsharded "cuda" engine of the same
    options: master, lane_mix, lane_peaks, lane_rms and voice_peaks
    bit-equal (the carried in-order lane mixdown); the windows kernel's
    launches must equal the unsharded engine's windows blocks plus k x each
@@ -148,9 +158,11 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    process at its short sizes: every key of its line present, every cell
    finite and positive, none failed or skipped, no share of a bound over
    100, every kernel launched; the line printed behind the card's name;
-16. graphs      — render graphs (libzl_tpu_torch/engine/graphs.py): a
-   default engine's every captured graph (B=128 and B=1024, f32 and int16
-   banks) replayed on the session's real programs, every output field
+16. graphs      — render graphs (libzl_tpu_torch/engine/graphs.py): every
+   captured graph of a default engine and of the horizon engine beside it
+   where the default is per-block (lookahead=2 at B=1024; f32 and int16
+   banks) replayed on
+   the session's real programs, every output field
    bit-equal to the eager render_block_sharded / render_horizon_sharded of
    the same program; a 384-block default session at B=128 with graphs
    ("auto") and without ("off") in lockstep, bit-equal every block across a
@@ -160,7 +172,19 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    p50, mean, horizon build and adoption spans at B=128, its paced lag,
    its realtime factor at B=1024, the pump's share of its periods, and
    warmup's seconds, capture seconds, graph count, graph memory and
-   memory_reserved growth.
+   memory_reserved growth;
+17. policy      — only with --policy-only: the dispatch defaults swept on
+   the session, 3 interleaved rounds a setting in rotated order, medians
+   and spreads: lookahead H in 0, 2, 4, 8, 16 at B = 128, 256 and 1024
+   (realtime factor, process_block p50 / p99 / mean, deadline misses by
+   kind with the first block after warmup apart, paced lag at B <= 256,
+   the horizon spans, renders and kernels a block); the ABI pump at B=128
+   at H = 0, 8, 16 (share of its periods, copy wait, misses); the bounce
+   drain's K in 1, 8, 16, 32, 64 through the bridge with a null sink at
+   B=1024 and 128 (ms a block, the flush phases); the ratio ladder [2, 4]
+   against [4] on the per-block engine at B=128 and 1024 (graphs, capture
+   seconds, graph MiB, realtime). Each prints the decision PERF.md's rule
+   takes from its numbers beside what "auto" resolves to in the code.
 
 Every phase prints its wall seconds. The line before the last holds the
 kernels' record as JSON, one entry a kernel (its launches are those of
@@ -1012,13 +1036,36 @@ def phase_slice(device) -> dict:
 # after 3 clean blocks, the chain is adopted at every exhaustion, and both
 # events land mid-horizon at least 3 blocks after the last one, so each
 # preempts the horizon and rebuilds it in its event block
-DEFAULT_RUNS = ((SUPER_BLOCK, 18, 10, 15), (LIVE_BLOCK, 66, 40, 48))
+DEFAULT_RUNS = ((SUPER_BLOCK, 18, 10, 15), (256, 40, 22, 27),
+                (LIVE_BLOCK, 66, 40, 48))
+# what "auto" resolves to on a card (PERF.md §5, "Dispatch defaults"): the
+# lookahead at each B of DEFAULT_RUNS, the ratio ladder, the bounce drain
+CARD_LOOKAHEAD = {SUPER_BLOCK: 0, 256: 0, LIVE_BLOCK: 16}
+CARD_LADDER = [4.0]
+CARD_DRAIN = 64
+
+
+def horizon_runs(B: int) -> list:
+    """(label, engine options) of the engines a phase drives at B: the
+    default, and where "auto" resolves to the per-block path on the card,
+    the horizon engine at the reference's H for B (H=2 at B=1024, 8 at
+    B=256) beside it, so every phase still drives a horizon at each B."""
+    from libzl_tpu_torch.engine.engine import (_reference_lookahead,
+                                               resolve_lookahead)
+
+    runs = [("default", {})]
+    H = _reference_lookahead(B)
+    if not resolve_lookahead("auto", B, "cuda") and H > 1:
+        runs.append((f"lookahead{H}", {"lookahead": H}))
+    return runs
 
 
 def default_engines(device, B: int):
-    """(default engine on `device`, per-block engine with the same buckets
-    and ladder on `device`, per-block engine on "cpu"), each with the
-    session built; the device engines warmed up."""
+    """(a horizon engine on `device`, the per-block engine with the same
+    buckets and ladder on `device`, the per-block engine on "cpu"), each
+    with the session built; the device engines warmed up. The default
+    engine is the first where "auto" resolves to a horizon at B, else the
+    second, beside the horizon engine of horizon_runs."""
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     def make(dev, **opts):
@@ -1027,8 +1074,12 @@ def default_engines(device, B: int):
         build_session(e)
         return e
 
-    hz = make(device)
-    pb = make(device, lookahead=0)
+    runs = dict(horizon_runs(B))
+    if len(runs) == 1:
+        hz, pb = make(device), make(device, lookahead=0)
+    else:
+        (_, opts), = [r for r in runs.items() if r[0] != "default"]
+        hz, pb = make(device, **opts), make(device)
     cpu = make("cpu", lookahead=0)
     hz.warmup()
     pb.warmup()
@@ -1075,12 +1126,15 @@ def phase_default_engine(device) -> dict:
     runs = []
     for B, n, off_at, strip_at in DEFAULT_RUNS:
         hz, pb, cpu = default_engines(device, B)
-        check(hz._lookahead == min(16, 2048 // B) and hz.fetch == "windows"
-              and hz._ratio_ladder == [2.0, 4.0]
-              and hz._bucket_ladder == [64, 128, 256, 512, 1024],
-              f"default options resolved to lookahead {hz._lookahead}, "
-              f"fetch {hz.fetch}, rungs {hz._ratio_ladder}, buckets "
-              f"{hz._bucket_ladder}")
+        default = hz if CARD_LOOKAHEAD[B] else pb
+        check(default._lookahead == CARD_LOOKAHEAD[B] and hz._lookahead > 1
+              and default.fetch == "windows"
+              and default._ratio_ladder == CARD_LADDER
+              and default._bucket_ladder == [64, 128, 256, 512, 1024],
+              f"default options at B={B} resolved to lookahead "
+              f"{default._lookahead} (want {CARD_LOOKAHEAD[B]}), fetch "
+              f"{default.fetch}, rungs {default._ratio_ladder} (want "
+              f"{CARD_LADDER}), buckets {default._bucket_ladder}")
         runs.append((B, n, off_at, strip_at, hz, pb, cpu))
     torch.cuda.synchronize()
     total = {}
@@ -1095,12 +1149,17 @@ def phase_default_engine(device) -> dict:
             "windows"]
         gather = hz.fetch_dispatches["gather"] + pb.fetch_dispatches["gather"]
         stats = hz.stats()
-        print(f"default B={B} H={hz._lookahead}: {n} blocks, horizons "
+        print(f"default B={B} H={CARD_LOOKAHEAD[B]}"
+              + (f", horizon engine H={hz._lookahead}"
+                 if not CARD_LOOKAHEAD[B] else "")
+              + f": {n} blocks, horizons "
               f"{r['horizons']}, adoptions {r['adoptions']}, event rebuilds "
               f"{r['rebuilds']}, preemptions {r['preempted']} (rebuilt "
               f"{r['rebuilt']}); vs cpu max err "
               + ", ".join(f"{k} {v:.3e}" for k, v in r["worst"].items())
-              + f"; vs cuda lookahead=0 max |diff| {r['worst_pb']:.3e}"
+              + f"; vs cuda lookahead=0"
+              + (" (the default)" if not CARD_LOOKAHEAD[B] else "")
+              + f" max |diff| {r['worst_pb']:.3e}"
               f"{' (bit-equal)' if r['worst_pb'] == 0.0 else ''}; kernel "
               f"launches {json.dumps(launches)}, rendered blocks windows "
               f"{windows} (horizon engine {hz.fetch_dispatches['windows']}) "
@@ -1110,6 +1169,8 @@ def phase_default_engine(device) -> dict:
               f"{stats['spec_failures']} ({time.perf_counter() - t0:.1f} s)")
         check(stats["spec_failures"] == 0,
               f"speculative build failed: {stats['spec_last_failure']}")
+        check(r["worst_pb"] == 0.0, f"B={B} H={hz._lookahead}: differs "
+              f"from lookahead=0 by {r['worst_pb']:.3e}")
         check(r["horizons"] >= 1 and r["adoptions"] >= 2,
               f"B={B}: {r['horizons']} horizons, {r['adoptions']} adoptions")
         check(r["preempted"] >= 2 and r["rebuilt"] >= 2,
@@ -1583,6 +1644,18 @@ def phase_timing(device, card: str, versions: dict, mix_versions: dict,
           f"{res['super_host_program_ms_p50']:.4f} ms, dispatch p50 "
           f"{res['super_dispatch_ms_p50']:.4f} ms, process_block p50 "
           f"{res['super_process_block_ms_p50']:.4f} ms")
+    from libzl_tpu_torch.engine.graphs import DISPATCH_SPANS
+
+    for B, p in ((SUPER_BLOCK, prof), (LIVE_BLOCK, lprof)):
+        parts = {name: p[name]["p50_ms"] for name in DISPATCH_SPANS
+                 if name in p}
+        res[f"dispatch_parts_{B}"] = parts
+        print(f"[{card}] per-block engine B={B} dispatch p50 "
+              f"{p['dispatch']['p50_ms']:.4f} ms; a replay's parts p50: "
+              + ", ".join(f"{name[9:]} {ms:.4f}" for name, ms in
+                          parts.items())
+              + f" ms; the rest of dispatch (bucket, rung, fuse, key) "
+              f"~{p['dispatch']['p50_ms'] - sum(parts.values()):.4f} ms")
     _print_profile(card, "superblock", super_profile,
                    res["super_process_block_ms_p50"])
     _print_profile(card, "live block", live_profile,
@@ -1704,14 +1777,16 @@ def _spans(engine) -> dict:
 
 def _default_timing(device, card: str, res: dict) -> None:
     """The default engine (horizon, chain, buckets, ladder) at both
-    geometries: realtime factor and ms/block over chained blocks (one sync
-    at the end), SLO misses per kind, DSP load, the lookahead spans, a
-    device profile; at B=128 also a paced run, one block per period."""
+    geometries, and the horizon engine beside it where the default is the
+    per-block path (horizon_runs): realtime factor and ms/block over
+    chained blocks (one sync at the end), SLO misses per kind, DSP load,
+    the lookahead spans, a device profile; at B=128 also a paced run of
+    the default engine, one block per period."""
     from libzl_tpu_torch.engine.engine import AudioEngine
 
-    def engine(B):
+    def engine(B, **opts):
         e = AudioEngine(device, sample_rate=SAMPLE_RATE, block_frames=B,
-                        num_voices=NUM_VOICES)
+                        num_voices=NUM_VOICES, **opts)
         build_session(e)
         e.warmup()
         for _ in range(3 + 4 * e._lookahead):   # past the first adoptions
@@ -1719,9 +1794,12 @@ def _default_timing(device, card: str, res: dict) -> None:
         torch.cuda.synchronize()
         return e
 
-    for B, n, rounds_n in ((SUPER_BLOCK, 40, 3), (LIVE_BLOCK, 320, 1)):
-        e = engine(B)
-        tag = f"default_{B}"
+    for B, n, rounds_n, label, opts in (
+            (B, n, r, label, opts)
+            for B, n, r in ((SUPER_BLOCK, 40, 3), (LIVE_BLOCK, 320, 1))
+            for label, opts in horizon_runs(B)):
+        e = engine(B, **opts)
+        tag = f"{label}_{B}"
         rts, per_block = [], []
         for _ in range(rounds_n):
             t0 = time.perf_counter()
@@ -1740,20 +1818,20 @@ def _default_timing(device, card: str, res: dict) -> None:
         res[f"{tag}_dsp_load"] = stats["dsp_load"]
         res[f"{tag}_spans"] = _spans(e)
         res[f"{tag}_spec_failures"] = stats["spec_failures"]
-        prof = _device_profile(e, 4 * e._lookahead)
+        prof = _device_profile(e, 4 * e._lookahead or 16)
         res.update({f"{tag}_profile_{k}": v for k, v in prof.items()})
-        print(f"[{card}] default engine B={B} H={e._lookahead}: realtime "
+        print(f"[{card}] {label} engine B={B} H={e._lookahead}: realtime "
               f"factor {res[f'{tag}_rt']:.3f}x (rounds "
               f"{', '.join(f'{r:.3f}' for r in rts)}), process_block ms p50 "
               f"{res[f'{tag}_ms_p50']:.4f} mean {res[f'{tag}_ms_mean']:.4f} "
               f"(chained, {rounds_n}x{n} blocks); dsp_load "
               f"{stats['dsp_load']}; spec failures {stats['spec_failures']}")
-        print(f"[{card}] default engine B={B} slo_by_kind (missed, total, "
+        print(f"[{card}] {label} engine B={B} slo_by_kind (missed, total, "
               f"worst overrun ms): {json.dumps(stats['slo_by_kind'])}")
-        print(f"[{card}] default engine B={B} spans: "
+        print(f"[{card}] {label} engine B={B} spans: "
               f"{json.dumps(res[f'{tag}_spans'])}")
         # emits make the p50 tiny: the busy share is over the mean
-        _print_profile(card, f"default engine B={B}", prof,
+        _print_profile(card, f"{label} engine B={B} H={e._lookahead}", prof,
                        res[f"{tag}_ms_mean"])
         check(stats["spec_failures"] == 0,
               f"speculative build failed: {stats['spec_last_failure']}")
@@ -2034,29 +2112,33 @@ def phase_graphs(device, card: str) -> dict:
     session with graphs bit-equal to the same session eager; then each
     path's end-to-end numbers (mode_timing), in turns."""
     res = {}
-    for B in (LIVE_BLOCK, SUPER_BLOCK):
-        for bank in ("float32", "int16"):
-            t0 = time.perf_counter()
-            e = graph_engine(device, B, bank_dtype=bank)
-            warm = measured_warmup(e)
-            progs = session_programs(e, 3 + 2 * e._lookahead + 4)
-            check(set(progs) == {"block", "horizon"},
-                  f"B={B}: the session dispatched {sorted(progs)}")
-            n = check_replays(e, progs, f"B={B} {bank} bank")
-            label = f"{B}_{bank}"
-            res[f"replays_checked_{label}"] = n
-            res[f"warmup_{label}"] = warm
-            keys = sorted((k.kind, k.voices, k.rmax, k.fetch)
-                          for k in e._graphs.keys())
-            print(f"[{card}] graphs B={B} {bank} bank: {n} graphs (keys "
-                  f"{keys}), "
-                  f"each replay bit-equal to the eager render (max abs "
-                  f"error 0); warmup {warm['warmup_s']:.3f} s, capture "
-                  f"{warm['capture_s']:.3f} s, graphs hold "
-                  f"{warm['graph_bytes'] / 2**20:.1f} MiB, memory_reserved "
-                  f"+{warm['reserved_growth'] / 2**20:.1f} MiB "
-                  f"({time.perf_counter() - t0:.1f} s)")
-            del e
+    for B, bank, name, opts in ((B, bank, name, opts)
+                                for B in (LIVE_BLOCK, SUPER_BLOCK)
+                                for bank in ("float32", "int16")
+                                for name, opts in horizon_runs(B)):
+        t0 = time.perf_counter()
+        e = graph_engine(device, B, bank_dtype=bank, **opts)
+        warm = measured_warmup(e)
+        progs = session_programs(e, 3 + 2 * e._lookahead + 4)
+        kinds = {"block", "horizon"} if e._lookahead else {"block"}
+        check(set(progs) == kinds,
+              f"B={B} {name}: the session dispatched {sorted(progs)}")
+        n = check_replays(e, progs, f"B={B} {bank} bank {name}")
+        label = f"{B}_{bank}_{name}"
+        res[f"replays_checked_{label}"] = n
+        res[f"warmup_{label}"] = warm
+        keys = sorted((k.kind, k.voices, k.rmax, k.fetch)
+                      for k in e._graphs.keys())
+        print(f"[{card}] graphs B={B} {bank} bank, {name} engine "
+              f"H={e._lookahead}: {n} graphs (keys "
+              f"{keys}), "
+              f"each replay bit-equal to the eager render (max abs "
+              f"error 0); warmup {warm['warmup_s']:.3f} s, capture "
+              f"{warm['capture_s']:.3f} s, graphs hold "
+              f"{warm['graph_bytes'] / 2**20:.1f} MiB, memory_reserved "
+              f"+{warm['reserved_growth'] / 2**20:.1f} MiB "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del e
     t0 = time.perf_counter()
     sess = graph_session(device)
     res["session"] = sess
@@ -2198,7 +2280,7 @@ def phase_bridge(device, wavs: list, tmp: str) -> dict:
     launches = read_launches()
     ref = bridge_run("cpu", 1, wavs, tmp)
     drained, plain = runs["auto"], runs[1]
-    check(drained["drain"] == 32 and plain["drain"] == 1,
+    check(drained["drain"] == CARD_DRAIN and plain["drain"] == 1,
           f"bounce drain resolved to {drained['drain']}/{plain['drain']}")
     frames = BRIDGE_BLOCKS * LIVE_BLOCK
     for r in (drained, plain, ref):
@@ -2206,7 +2288,7 @@ def phase_bridge(device, wavs: list, tmp: str) -> dict:
               f"{r['stream'].shape[0]} frames, expected {frames}")
         check(r["lane"].shape == (frames // 2, 2), "lane recording frames")
     check(np.array_equal(drained["stream"], plain["stream"]),
-          "drain-32 sink stream differs from drain-1")
+          f"drain-{CARD_DRAIN} sink stream differs from drain-1")
     atol = MIX_ATOL_PER_VOICE * max(ref["densest"], plain["densest"], 1)
     errs = [_close(r["stream"], ref["stream"], atol, f"bridge {k} vs cpu")
             for k, r in runs.items()]
@@ -2223,7 +2305,8 @@ def phase_bridge(device, wavs: list, tmp: str) -> dict:
         print(f"bridge {device} drain {r['drain']}: {BRIDGE_BLOCKS} blocks "
               f"in {r['seconds']:.1f} s (incl. init + 64 clip loads); "
               f"phases {json.dumps(r['phases'])}")
-    print(f"bridge: drain-32 == drain-1 (bit-equal); vs cpu (densest lane "
+    print(f"bridge: drain-{CARD_DRAIN} == drain-1 (bit-equal); vs cpu "
+          f"(densest lane "
           f"{ref['densest']} voices, atol {atol:.1e}) max err "
           f"{max(errs):.3e}; lane:2 recording peak {peak:.3f} max err "
           f"{lane_err:.3e}; kernel launches {json.dumps(launches)}, "
@@ -2609,59 +2692,69 @@ def _mesh_report(engines: dict, warm: dict, timing: dict) -> str:
     return "; ".join(rows)
 
 
+def mesh_modes() -> list:
+    """(mode, engine options, B, blocks) of phase 13: the per-block engine,
+    then the horizon engine (horizon_runs: the default where "auto"
+    resolves to a horizon on the card) at each of MESH_RUNS."""
+    modes = [("per-block", dict(lookahead=0), B, n) for B, n in MESH_RUNS]
+    for B, n in MESH_RUNS:
+        label, opts = horizon_runs(B)[-1]
+        modes.append((label, opts, B, n))
+    return modes
+
+
 def phase_mesh(device, card: str) -> tuple:
     from libzl_tpu_torch.parallel.sharding import canonical_device, make_mesh
 
     first = canonical_device(device)
     meshes = {k: make_mesh(devices=[first] * k) for k in MESH_SHARDS}
     total, timing = {}, {}
-    for mode, opts in (("per-block", dict(lookahead=0)), ("default", {})):
-        for B, n in MESH_RUNS:
-            t0 = time.perf_counter()
-            engines, warm = mesh_engines(first, B, opts, meshes)
-            for k, e in engines.items():
-                check(e.fetch == "windows", f"{k}: fetch {e.fetch}")
-            reset_counts(engines.values())
-            torch.cuda.synchronize()
-            reset_launches()
-            worst = drive_mesh(engines, n, f"mesh {mode} B={B}")
-            torch.cuda.synchronize()
-            launches = _mesh_launches(engines, f"mesh {mode} B={B}")
-            windows = {k: e.fetch_dispatches["windows"]
-                       for k, e in engines.items()}
-            rendered = {k: sum(e.render_dispatches.values())
-                        for k, e in engines.items()}
-            total = add_launches(total, launches)
-            shard_v = {k: check_shard_kernels(engines[label], k)
-                       for k in MESH_SHARDS
-                       for label in [mesh_label(k, "off")]
-                       if not engines[label]._lookahead}
-            runs = {}
-            for label, e in engines.items():
-                runs[label] = time_mesh(e, 20 if B == SUPER_BLOCK else 96)
-                if not e._lookahead:
-                    runs[label].update(_device_profile(e, 10))
-                runs[label].update(
-                    {f"warmup_{k}": v for k, v in warm[label].items()})
-                timing[f"{mode}_{B}_{label}"] = runs[label]
-            print(f"mesh {mode} B={B} H={engines['k=1']._lookahead}: {n} "
-                  f"blocks; "
-                  + "; ".join(f"{k} max err " + ", ".join(
-                      f"{a} {v:.3e}" for a, v in w.items())
-                      for k, w in worst.items())
-                  + f"; windows blocks {windows}, renders {rendered}"
-                  f", kernel launches {json.dumps(launches)} (= sum of k x "
-                  f"blocks, k x renders; graph engines: every render a "
-                  f"replay, late capture or stale render)"
-                  + (f"; shard voice preps, fetches, voice posts and "
-                     f"mixdowns and the finish bit-equal to plain at V="
-                     f"{sorted(shard_v.values())}" if shard_v else "")
-                  + f" ({time.perf_counter() - t0:.1f} s)")
-            print(f"[{card}] mesh {mode} B={B}: "
-                  + _mesh_report(engines, warm, runs)
-                  + " (chained blocks, one sync at the end; device from "
-                  "torch.profiler over 10 more)")
-            del engines
+    for mode, opts, B, n in mesh_modes():
+        t0 = time.perf_counter()
+        engines, warm = mesh_engines(first, B, opts, meshes)
+        for k, e in engines.items():
+            check(e.fetch == "windows", f"{k}: fetch {e.fetch}")
+        reset_counts(engines.values())
+        torch.cuda.synchronize()
+        reset_launches()
+        worst = drive_mesh(engines, n, f"mesh {mode} B={B}")
+        torch.cuda.synchronize()
+        launches = _mesh_launches(engines, f"mesh {mode} B={B}")
+        windows = {k: e.fetch_dispatches["windows"]
+                   for k, e in engines.items()}
+        rendered = {k: sum(e.render_dispatches.values())
+                    for k, e in engines.items()}
+        total = add_launches(total, launches)
+        shard_v = {k: check_shard_kernels(engines[label], k)
+                   for k in MESH_SHARDS
+                   for label in [mesh_label(k, "off")]
+                   if not engines[label]._lookahead}
+        runs = {}
+        for label, e in engines.items():
+            runs[label] = time_mesh(e, 20 if B == SUPER_BLOCK else 96)
+            if not e._lookahead:
+                runs[label].update(_device_profile(e, 10))
+            runs[label].update(
+                {f"warmup_{k}": v for k, v in warm[label].items()})
+            timing[f"{mode}_{B}_{label}"] = runs[label]
+        print(f"mesh {mode} B={B} H={engines['k=1']._lookahead}: {n} "
+              f"blocks; "
+              + "; ".join(f"{k} max err " + ", ".join(
+                  f"{a} {v:.3e}" for a, v in w.items())
+                  for k, w in worst.items())
+              + f"; windows blocks {windows}, renders {rendered}"
+              f", kernel launches {json.dumps(launches)} (= sum of k x "
+              f"blocks, k x renders; graph engines: every render a "
+              f"replay, late capture or stale render)"
+              + (f"; shard voice preps, fetches, voice posts and "
+                 f"mixdowns and the finish bit-equal to plain at V="
+                 f"{sorted(shard_v.values())}" if shard_v else "")
+              + f" ({time.perf_counter() - t0:.1f} s)")
+        print(f"[{card}] mesh {mode} B={B}: "
+              + _mesh_report(engines, warm, runs)
+              + " (chained blocks, one sync at the end; device from "
+              "torch.profiler over 10 more)")
+        del engines
     if torch.cuda.device_count() >= 2:
         total = add_launches(total, phase_mesh_cards(card))
     else:
@@ -2692,7 +2785,7 @@ def phase_mesh_cards(card: str) -> dict:
     check(k >= 2, f"mesh across cards needs two or more cards, has {k}")
     total = {}
     for mode, opts, B, n in (("per-block", dict(lookahead=0), SUPER_BLOCK, 8),
-                             ("default", {}, LIVE_BLOCK, 40)):
+                             (*horizon_runs(LIVE_BLOCK)[-1], LIVE_BLOCK, 40)):
         t0 = time.perf_counter()
         engines, warm = mesh_engines(cards.devices[0], B, opts, {k: cards})
         reset_counts(engines.values())
@@ -2911,6 +3004,385 @@ def phase_bench(card: str) -> tuple:
     return line, launches
 
 
+# ------------------------------------------------- dispatch policy (17)
+
+POLICY_ROUNDS = 3
+POLICY_H = (0, 2, 4, 8, 16)
+# chained blocks a round at each B (about 1.7 s of audio at B <= 256)
+POLICY_BLOCKS = {LIVE_BLOCK: 640, 256: 320, SUPER_BLOCK: 120}
+POLICY_PACED = 384              # paced blocks a round, at B <= 256
+POLICY_PUMP_H = (0, 8, 16)
+POLICY_DRAIN_K = (1, 8, 16, 32, 64)
+POLICY_DRAIN_BLOCKS = {LIVE_BLOCK: 384, SUPER_BLOCK: 128}
+POLICY_LADDERS = ((2.0, 4.0), (4.0,))
+POLICY_K_WITHIN = 0.05          # K: the smallest within 5% of the best
+
+
+def _rotated(items, r: int) -> list:
+    """Round r's order of `items`: rotated by r, so no setting always runs
+    first or last."""
+    items = list(items)
+    r %= len(items)
+    return items[r:] + items[:r]
+
+
+def _med_spread(values) -> tuple:
+    """(median, max - min) of a setting's rounds."""
+    return float(np.median(values)), float(np.max(values) - np.min(values))
+
+
+def _misses(kinds: dict) -> int:
+    return sum(v[0] for v in kinds.values())
+
+
+def _add_kinds(total: dict, kinds: dict) -> dict:
+    """slo_by_kind summed over runs: [missed, total, worst overrun s]."""
+    out = {k: list(v) for k, v in total.items()}
+    for k, (missed, n, worst) in kinds.items():
+        m = out.setdefault(k, [0, 0, 0.0])
+        m[0] += missed
+        m[1] += n
+        m[2] = max(m[2], worst)
+    return out
+
+
+def policy_engine(device, B: int, H: int):
+    """The session on a default engine at lookahead H, warmed; its first
+    block after warmup run and its deadline misses kept apart."""
+    from libzl_tpu_torch.utils.profiling import SloCounter
+
+    e = graph_engine(device, B, lookahead=H)
+    e.warmup()
+    torch.cuda.synchronize()
+    e.slo = SloCounter(budget_seconds=B / SAMPLE_RATE)
+    e.process_block().outputs.master.cpu()
+    e.first_kinds = e.stats()["slo_by_kind"]
+    e.drain_speculation()
+    return e
+
+
+def policy_round(e, paced: bool) -> dict:
+    """One round of a lookahead setting: chained blocks (one sync at the
+    end) for the realtime factor and process_block p50 / p99 / mean and
+    the horizon spans; at B <= 256 then a paced run (one block a period)
+    for the lag; deadline misses of both; renders and kernels a block over
+    both, the speculation drained at the end (which drops the horizon: the
+    next round starts from the per-block path, as after an event)."""
+    from libzl_tpu_torch.utils.profiling import BlockProfiler, SloCounter
+
+    B = e.block_frames
+    period = B / SAMPLE_RATE
+    n = POLICY_BLOCKS[B]
+    e.slo = SloCounter(budget_seconds=period)
+    e.profiler = BlockProfiler()
+    renders0 = sum(e.render_dispatches.values())
+    launches0 = read_launches()
+    ms = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t1 = time.perf_counter()
+        out = e.process_block()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    out.outputs.master.cpu()
+    rt = n * B / SAMPLE_RATE / (time.perf_counter() - t0)
+    r = dict(rt=rt, p50=float(np.percentile(ms, 50)),
+             p99=float(np.percentile(ms, 99)), mean=float(np.mean(ms)),
+             kinds=e.stats()["slo_by_kind"], spans=_spans(e), lag=None,
+             paced_kinds={})
+    if paced:
+        e.slo = SloCounter(budget_seconds=period)
+        t0 = time.perf_counter()
+        for i in range(POLICY_PACED):
+            wait = t0 + i * period - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            out = e.process_block()
+        out.outputs.master.cpu()
+        r["lag"] = (time.perf_counter() - t0 - POLICY_PACED * period) * 1e3
+        r["paced_kinds"] = e.stats()["slo_by_kind"]
+        n += POLICY_PACED
+    e.drain_speculation()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    r["renders"] = (sum(e.render_dispatches.values()) - renders0) / n
+    r["kernels"] = sum(launches[k] - launches0[k] for k in launches) / n
+    check(e.stats()["spec_failures"] == 0, f"policy B={B} H={e._lookahead}: "
+          f"speculative build failed: {e.stats()['spec_last_failure']}")
+    return r
+
+
+def decide_lookahead(rows: dict, B: int) -> tuple:
+    """PERF.md's rule for one B over {H: row}: keep the settings with no
+    deadline miss in any round (the first block after warmup not counted)
+    and a median paced lag within one block period; take the highest
+    median realtime; a setting whose median is within the larger of the
+    two spreads of that one ties with it, and the smallest H of a tie
+    wins. With no setting clean, the fewest misses (then the rule above
+    among those). Returns (H, why)."""
+    period_ms = B / SAMPLE_RATE * 1e3
+    lag_ok = {H: r["lag"] is None or r["lag"] <= period_ms
+              for H, r in rows.items()}
+    clean = [H for H, r in rows.items() if r["misses"] == 0 and lag_ok[H]]
+    why = "no misses, lag within a period"
+    if not clean:
+        fewest = min(r["misses"] for r in rows.values())
+        clean = [H for H, r in rows.items() if r["misses"] == fewest]
+        why = f"no setting clean: the fewest misses ({fewest})"
+    best = max(clean, key=lambda H: rows[H]["rt"])
+    ties = [H for H in clean if rows[best]["rt"] - rows[H]["rt"]
+            <= max(rows[best]["rt_spread"], rows[H]["rt_spread"])]
+    H = min(ties)
+    return H, (f"{why}: {sorted(clean)}; best median realtime H={best}; "
+               f"ties within the spread {sorted(ties)}")
+
+
+def policy_lookahead(device, card: str) -> dict:
+    """H in POLICY_H at B = 128, 256 and 1024, POLICY_ROUNDS interleaved
+    rounds a setting in rotated order; each setting's medians, spreads and
+    misses, and the decision of decide_lookahead for each B."""
+    from libzl_tpu_torch.engine import engine as engine_mod
+
+    out = {}
+    for B in (LIVE_BLOCK, 256, SUPER_BLOCK):
+        t0 = time.perf_counter()
+        engines = {H: policy_engine(device, B, H) for H in POLICY_H}
+        rounds = {H: [] for H in POLICY_H}
+        for r in range(POLICY_ROUNDS):
+            for H in _rotated(POLICY_H, r):
+                rounds[H].append(policy_round(engines[H], B <= 256))
+        rows = {}
+        for H, rs in rounds.items():
+            kinds = {}
+            for x in rs:
+                kinds = _add_kinds(_add_kinds(kinds, x["kinds"]),
+                                   x["paced_kinds"])
+            rt, rt_spread = _med_spread([x["rt"] for x in rs])
+            lags = [x["lag"] for x in rs if x["lag"] is not None]
+            rows[H] = dict(
+                rt=rt, rt_spread=rt_spread, rt_rounds=[x["rt"] for x in rs],
+                p50=_med_spread([x["p50"] for x in rs]),
+                p99=_med_spread([x["p99"] for x in rs]),
+                mean=_med_spread([x["mean"] for x in rs]),
+                lag=_med_spread(lags)[0] if lags else None,
+                lag_rounds=lags, kinds=kinds, misses=_misses(kinds),
+                first=engines[H].first_kinds,
+                renders=float(np.median([x["renders"] for x in rs])),
+                kernels=float(np.median([x["kernels"] for x in rs])),
+                spans={name: _med_spread([x["spans"][name]["p50_ms"]
+                                          for x in rs
+                                          if name in x["spans"]])
+                       for name in ("horizon_build", "adopt_wait", "emit")
+                       if all(name in x["spans"] for x in rs)},
+                span_max={name: max(x["spans"][name]["max_ms"] for x in rs
+                                    if name in x["spans"])
+                          for name in ("horizon_build", "adopt_wait",
+                                       "emit")
+                          if any(name in x["spans"] for x in rs)})
+        for e in engines.values():
+            e.drain_speculation()
+        del engines
+        H, why = decide_lookahead(rows, B)
+        auto = engine_mod.resolve_lookahead("auto", B, "cuda")
+        out[B] = dict(rows=rows, decided=H, why=why, auto=auto)
+        for H_, r in rows.items():
+            print(f"[{card}] policy B={B} H={H_}: realtime median "
+                  f"{r['rt']:.3f}x spread {r['rt_spread']:.3f} (rounds "
+                  f"{', '.join(f'{x:.3f}' for x in r['rt_rounds'])}); "
+                  f"process_block ms p50 {r['p50'][0]:.4f} (spread "
+                  f"{r['p50'][1]:.4f}), p99 {r['p99'][0]:.4f} "
+                  f"({r['p99'][1]:.4f}), mean {r['mean'][0]:.4f} "
+                  f"({r['mean'][1]:.4f}); misses {r['misses']} "
+                  f"{json.dumps(r['kinds'])}; first block after warmup "
+                  f"{json.dumps(r['first'])}; paced lag "
+                  + (f"{r['lag']:.2f} ms (rounds "
+                     f"{', '.join(f'{x:.2f}' for x in r['lag_rounds'])})"
+                     if r["lag"] is not None else "not run")
+                  + "; spans p50 (median, spread) / max ms: "
+                  + (", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f})"
+                               for k, v in r["spans"].items()) or "none")
+                  + " / " + (", ".join(f"{k} {v:.4f}" for k, v in
+                                       r["span_max"].items()) or "none")
+                  + f"; renders {r['renders']:.3f} and kernels "
+                  f"{r['kernels']:.2f} a block")
+        print(f"[{card}] policy B={B}: decided H={H} ({why}); the code's "
+              f"auto on cuda resolves to H={auto} "
+              f"({'agrees' if auto == H else 'differs'}) "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def policy_pump(device, card: str) -> dict:
+    """The C ABI's wall-clock pump at B=128 (bench.measure_pump: null sink,
+    per-block delivery, 5 s) at H in POLICY_PUMP_H, rounds rotated: its
+    share of its periods, the copy wait and the deadline misses."""
+    out = {H: [] for H in POLICY_PUMP_H}
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = bench.write_session_wavs(tmp)
+        for r in range(POLICY_ROUNDS):
+            for H in _rotated(POLICY_PUMP_H, r):
+                with _env(LIBZL_TPU_LOOKAHEAD=H):
+                    p = bench.measure_pump(device, wavs, PUMP_SECONDS)
+                check(p["error"] is None, f"pump H={H}: {p['error']!r}")
+                check(p["stats"]["spec_failures"] == 0,
+                      f"pump H={H}: speculative build failed")
+                out[H].append(dict(share=p["share"],
+                                   wait=p["copy_wait"],
+                                   kinds=p["stats"]["slo_by_kind"]))
+    res = {}
+    for H, rs in out.items():
+        kinds = {}
+        for x in rs:
+            kinds = _add_kinds(kinds, x["kinds"])
+        share = _med_spread([x["share"] for x in rs])
+        wait50 = _med_spread([x["wait"].get("p50_ms", float("nan"))
+                              for x in rs])
+        wait_max = max(x["wait"].get("max_ms", float("nan")) for x in rs)
+        res[H] = dict(share=share, wait_p50=wait50, wait_max=wait_max,
+                      kinds=kinds, misses=_misses(kinds))
+        print(f"[{card}] policy pump B=128 H={H}: share of its periods "
+              f"median {share[0]:.4f} spread {share[1]:.4f} (rounds "
+              + ", ".join(f"{x['share']:.4f}" for x in rs)
+              + f"); copy_wait "
+              f"p50 median {wait50[0]:.4f} ms, max {wait_max:.4f} ms; "
+              f"misses {res[H]['misses']} {json.dumps(kinds)}")
+    return res
+
+
+def policy_drain(device, card: str) -> dict:
+    """The bounce drain: the bridge in process (LIBZL_TPU_NO_PUMP) with a
+    null sink, the ABI session, K in POLICY_DRAIN_K set on one runtime
+    between rounds (rotated), POLICY_DRAIN_BLOCKS blocks a round through
+    step_blocks: ms a block and the flush phases; the K the rule picks
+    (the smallest within POLICY_K_WITHIN of the best median)."""
+    from libzl_tpu_torch.capi import bridge
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = bench.write_session_wavs(tmp)
+        for B in (SUPER_BLOCK, LIVE_BLOCK):
+            t0 = time.perf_counter()
+            with _env(LIBZL_TPU_NO_PUMP=1, LIBZL_TPU_BACKEND=device,
+                      LIBZL_TPU_VOICES=NUM_VOICES, LIBZL_TPU_BLOCK=B,
+                      LIBZL_TPU_SINK="null"):
+                bridge.init_engine()
+            try:
+                rt = bridge._rt()
+                auto = rt.bounce_drain_blocks
+                abi_session(bridge, wavs)
+                rt.engine.warmup()
+                rt.step_blocks(2 * max(POLICY_DRAIN_K))
+                n = POLICY_DRAIN_BLOCKS[B]
+                runs = {K: [] for K in POLICY_DRAIN_K}
+                for r in range(POLICY_ROUNDS):
+                    for K in _rotated(POLICY_DRAIN_K, r):
+                        rt.bounce_drain_blocks = K
+                        before = rt.phase_stats()
+                        t1 = time.perf_counter()
+                        rt.step_blocks(n)
+                        ms = (time.perf_counter() - t1) / n * 1e3
+                        after = rt.phase_stats()
+                        runs[K].append(dict(ms=ms, phases={
+                            k: after[k] - before.get(k, 0)
+                            for k in after if k.startswith("flush")}))
+                rt.engine.drain_speculation()
+                H = rt.engine._lookahead
+            finally:
+                bridge.shutdown_engine()
+            rows = {}
+            for K, rs in runs.items():
+                phases = {k: float(np.median([x["phases"].get(k, 0)
+                                              for x in rs]))
+                          for k in rs[0]["phases"]}
+                rows[K] = dict(ms=_med_spread([x["ms"] for x in rs]),
+                               rounds=[x["ms"] for x in rs], phases=phases)
+            best = min(r["ms"][0] for r in rows.values())
+            K = min(K for K, r in rows.items()
+                    if r["ms"][0] <= best * (1 + POLICY_K_WITHIN))
+            res[B] = dict(rows=rows, decided=K, auto=auto, lookahead=H)
+            for K_, r in rows.items():
+                print(f"[{card}] policy drain B={B} (H={H}) K={K_}: ms a "
+                      f"block median {r['ms'][0]:.4f} spread "
+                      f"{r['ms'][1]:.4f} (rounds "
+                      f"{', '.join(f'{x:.4f}' for x in r['rounds'])}); "
+                      f"flush phases over {n} blocks (median) "
+                      f"{json.dumps(r['phases'])}")
+            print(f"[{card}] policy drain B={B}: decided K={K} (the smallest "
+                  f"within {100 * POLICY_K_WITHIN:g}% of the best median, "
+                  f"{best:.4f} ms); the code's auto on cuda resolves to "
+                  f"K={auto} ({'agrees' if auto == K else 'differs'}) "
+                  f"({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+def policy_ladder(device, card: str) -> dict:
+    """The ratio ladder on cuda: [2.0, 4.0] against [4.0] on the per-block
+    engine (lookahead 0, voice buckets auto), B = 128 and 1024, a new
+    engine each round (rotated): warmup's graphs, capture seconds and graph
+    MiB, and the chained realtime factor. The ladder is set on the engine
+    before warmup, whatever "auto" resolves to."""
+    res = {}
+    for B in (LIVE_BLOCK, SUPER_BLOCK):
+        runs = {ladder: [] for ladder in POLICY_LADDERS}
+        for r in range(POLICY_ROUNDS):
+            for ladder in _rotated(POLICY_LADDERS, r):
+                e = graph_engine(device, B, lookahead=0)
+                e._ratio_ladder = list(ladder)
+                warm = measured_warmup(e)
+                for _ in range(10):
+                    e.process_block()
+                torch.cuda.synchronize()
+                n = POLICY_BLOCKS[B]
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    out = e.process_block()
+                out.outputs.master.cpu()
+                warm["rt"] = n * B / SAMPLE_RATE / (time.perf_counter() - t0)
+                warm["rungs"] = sorted({k.rmax for k in e._graphs.keys()})
+                runs[ladder].append(warm)
+                del e
+        rows = {}
+        for ladder, rs in runs.items():
+            rows[ladder] = dict(
+                rt=_med_spread([x["rt"] for x in rs]),
+                rt_rounds=[x["rt"] for x in rs],
+                graphs=rs[0]["graphs"], rungs=rs[0]["rungs"],
+                capture_s=_med_spread([x["capture_s"] for x in rs]),
+                mib=rs[0]["graph_bytes"] / 2**20)
+        two, top = rows[POLICY_LADDERS[0]], rows[POLICY_LADDERS[1]]
+        spread = max(two["rt"][1], top["rt"][1])
+        decided = (list(POLICY_LADDERS[0])
+                   if two["rt"][0] - top["rt"][0] > spread
+                   else list(POLICY_LADDERS[1]))
+        res[B] = dict(rows={str(list(k)): v for k, v in rows.items()},
+                      decided=decided)
+        for ladder, r in rows.items():
+            print(f"[{card}] policy ladder B={B} {list(ladder)}: per-block "
+                  f"realtime median {r['rt'][0]:.3f}x spread "
+                  f"{r['rt'][1]:.3f} (rounds "
+                  f"{', '.join(f'{x:.3f}' for x in r['rt_rounds'])}); "
+                  f"warmup {r['graphs']} graphs (rungs {r['rungs']}), "
+                  f"capture median {r['capture_s'][0]:.3f} s spread "
+                  f"{r['capture_s'][1]:.3f}, {r['mib']:.1f} MiB")
+        print(f"[{card}] policy ladder B={B}: decided {decided} (the two "
+              f"rungs only if faster by more than the spread, {spread:.3f})")
+    return res
+
+
+def phase_policy(device, card: str) -> dict:
+    """The dispatch defaults on the card (PERF.md §5): lookahead H at three
+    block sizes, H through the pump, the bounce drain's K, the ratio
+    ladder; medians and spreads of interleaved rounds, and the decision
+    each rule takes from them."""
+    res = {}
+    for name, fn in (("lookahead", policy_lookahead),
+                     ("ladder", policy_ladder), ("drain", policy_drain),
+                     ("pump", policy_pump)):
+        t0 = time.perf_counter()
+        res[name] = fn(device, card)
+        print(f"policy {name}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 @contextlib.contextmanager
 def _phase(name: str):
     t0 = time.perf_counter()
@@ -2950,6 +3422,10 @@ def main() -> int:
                     help="run phases 1 and 2, then only phase 13 (meshes "
                          "on the first card, and across cards where there "
                          "are two or more)")
+    ap.add_argument("--policy-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 17 (the "
+                         "dispatch defaults' sweep: lookahead, ratio "
+                         "ladder, bounce drain, the pump's lookahead)")
     ap.add_argument("--soak-seconds", type=float, default=20.0,
                     help="length of phase 14's pump soak")
     ap.add_argument("--soak-event-seconds", type=float, default=5.0,
@@ -2984,6 +3460,13 @@ def main() -> int:
             launches, mesh_timing = phase_mesh(device, card)
         print(f"mesh timing: {json.dumps(mesh_timing)}")
         print(f"mesh launches: {json.dumps(launches)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
+    if opts.policy_only:
+        with _phase("17 policy"):
+            policy = phase_policy(device, card)
+        print(f"policy: {json.dumps(policy)}")
         print(f"total {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0

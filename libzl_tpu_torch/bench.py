@@ -34,6 +34,9 @@ the first card; there is no "cuda if available" picker) and reports:
 - 96 voices at B=1024 (`realtime_factor_96voices`) and 96 live voices on the
   1024-voice pool with voice buckets at B=128
   (`rt_liveblock_96on1024_bucketed`);
+- the superblocks through the lookahead horizon at H=2, the reference's
+  default there, beside the headline's default engine
+  (`rt_superblock_lookahead2`, best round);
 - the superblock realtime of the per-block engine on a mesh of k shards of
   the one device, warmed, replaying its render graphs (one CUDA graph a
   render, as on one shard) (`rt_superblock_mesh_k2`, `_k4`);
@@ -92,7 +95,7 @@ CELLS = (
     "voice_post_kernel_ms", "finish_kernel_ms", "kernel_bound_ms",
     "pct_of_bound",
     "kernel_pct_of_bound", "realtime_factor_96voices",
-    "rt_liveblock_96on1024_bucketed",
+    "rt_liveblock_96on1024_bucketed", "rt_superblock_lookahead2",
     *(f"rt_superblock_mesh_k{k}" for k in MESH_SHARDS),
     "pump_realtime_share", "fence_seconds",
 )
@@ -658,6 +661,13 @@ def measure_sparse_session(run: Run, blocks: int = 200) -> float:
     return _best_chained(run, engine, blocks)
 
 
+def measure_horizon_superblock(run: Run, blocks: int = 400) -> float:
+    """The session's superblocks through the lookahead horizon at H=2
+    (the reference's "auto" at B=1024), whatever the device's "auto"
+    resolves to. Best round's realtime factor."""
+    return _best_chained(run, run.session(SUPER_BLOCK, lookahead=2), blocks)
+
+
 def measure_mesh_realtime(run: Run, shards: int, blocks: int = 40) -> float:
     """The per-block engine's superblock realtime factor on a mesh of
     `shards` shards of the run's one device (the voices split, every
@@ -815,6 +825,9 @@ def run_cells(run: Run, sizes: dict = FULL) -> None:
     cell("sparse", lambda: run.set(
         rt_liveblock_96on1024_bucketed=measure_sparse_session(
             run, sizes["sparse_blocks"])))
+    cell("horizon", lambda: run.set(
+        rt_superblock_lookahead2=measure_horizon_superblock(
+            run, sizes["headline_blocks"])))
     for k in MESH_SHARDS:
         cell(f"mesh k={k}", lambda k=k: run.set(**{
             f"rt_superblock_mesh_k{k}": measure_mesh_realtime(

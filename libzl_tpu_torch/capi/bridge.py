@@ -136,6 +136,23 @@ class _Staged:
     outputs: bool           # every output field rides the copy (recording)
 
 
+# "auto" on a CUDA card: the smallest K within 5% of the best bounce ms a
+# block of K in {1, 8, 16, 32, 64}, at B=1024 and B=128 alike, in the
+# first two sweeps of chip_smoke.py --policy-only (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md §5, "Dispatch defaults"; later sweeps picked 8 to 64,
+# and 64 had the lowest median of all their rounds)
+CARD_BOUNCE_DRAIN = 64
+
+
+def resolve_bounce_drain(bounce_drain, device_type: str) -> int:
+    """The bounce drain's K for the runtime's `bounce_drain` option: "auto"
+    is CARD_BOUNCE_DRAIN on "cuda" and 1 elsewhere (the reference's host
+    value); an int is taken as it is, at least 1."""
+    if bounce_drain == "auto":
+        bounce_drain = CARD_BOUNCE_DRAIN if device_type == "cuda" else 1
+    return max(int(bounce_drain), 1)
+
+
 class EngineRuntime:
     """The process-wide engine singleton + block pump thread."""
 
@@ -173,12 +190,11 @@ class EngineRuntime:
         # Global-playback recording rides the drain (its input IS the
         # fetched master); other per-block consumers (port/channel
         # recorders, capture sources, pacing sinks) get per-block delivery.
-        # "auto" = 32 on "cuda", 1 on "cpu" (the reference's accelerator /
-        # host split). A non-pacing consumer sees its audio <= 2K blocks
-        # late (one window gathering, one in flight), never reordered.
-        if bounce_drain == "auto":
-            bounce_drain = 32 if self.engine.device.type == "cuda" else 1
-        self.bounce_drain_blocks = max(int(bounce_drain), 1)
+        # "auto" (resolve_bounce_drain) = 64 on "cuda", 1 on "cpu". A
+        # non-pacing consumer sees its audio <= 2K blocks late (one window
+        # gathering, one in flight), never reordered.
+        self.bounce_drain_blocks = resolve_bounce_drain(
+            bounce_drain, self.engine.device.type)
         self._drain_buf: list = []  # [(block_no, BlockResult)]
         # the in-flight drain: (buf, plans, _HostCopy), delivered at the
         # NEXT flush, so its copy overlaps a whole drain window of rendering
@@ -659,7 +675,7 @@ def init_engine(sample_rate: int = 48000, block_frames: int = 128,
     LIBZL_TPU_VOICES, LIBZL_TPU_BLOCK, LIBZL_TPU_RATE, LIBZL_TPU_NO_PUMP=1,
     LIBZL_TPU_PIPELINE=<depth>, LIBZL_TPU_BOUNCE_DRAIN=<K> (non-pacing
     sinks: one device->host copy per K blocks), LIBZL_TPU_LOOKAHEAD=<H>
-    (horizon depth; "auto" fills a 2048-frame window),
+    (horizon depth; "auto" as the engine resolves it),
     LIBZL_TPU_SINK=alsa[:dev]|file:path|null,
     LIBZL_TPU_SOURCE=alsa[:dev]|file:path|null, LIBZL_TPU_WARMUP=1 (render
     every shape the session can dispatch before the pump starts; on cuda

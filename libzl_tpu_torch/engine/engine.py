@@ -23,8 +23,11 @@ program upload per block (per shard), and the render through
                     │   (fused program [V, K], one upload) -> render (torch)
                     └─ session updates (positions, meters) <────────────┘
 
-The reference's defaults are the port's: the lookahead horizon ("auto": H=16
-at B=128, H=2 at B=1024), bucketed prefix rendering and the ratio ladder.
+The reference's defaults are the port's on the CPU: the lookahead horizon
+("auto": H=16 at B=128, H=2 at B=1024), bucketed prefix rendering and the
+ratio ladder. On a CUDA card "auto" resolves by the card's measurements
+(resolve_lookahead, resolve_ratio_ladder): H=16 up to B=181, the
+per-block path above it, the top ratio rung only.
 `mesh` (parallel/sharding.make_mesh) shards the voice axis over the mesh's
 devices from this one process, as the reference's single controller does:
 every per-block and horizon dispatch renders each shard's voices on its own
@@ -284,6 +287,59 @@ class _SpecChain:
             self._finish()
 
 
+def _reference_lookahead(block_frames: int) -> int:
+    """The reference's "auto" on its accelerator: a 2048-frame window, at
+    most 16 blocks (libzl_tpu/engine/engine.py, chosen on the TPU)."""
+    return (max(min(16, 2048 // block_frames), 0)
+            if block_frames <= 2048 else 0)
+
+
+# "auto" on a CUDA card, from five sweeps of chip_smoke.py --policy-only on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §5, "Dispatch defaults"):
+# at each measured B the H that most sweeps decided by PERF.md's rule,
+# 16 at B=128, 0 (the per-block path) at B=256 and B=1024. A block size
+# between measured ones takes the decision of the nearer one on a log
+# scale: the horizon's side ends at sqrt(128 * 256) ~ 181 frames.
+CARD_LOOKAHEAD_MAX_FRAMES = 181
+CARD_LOOKAHEAD = 16
+
+
+def _card_lookahead(block_frames: int) -> int:
+    """"auto" on a CUDA card: CARD_LOOKAHEAD blocks up to
+    CARD_LOOKAHEAD_MAX_FRAMES a block, else the per-block path."""
+    return (CARD_LOOKAHEAD if block_frames <= CARD_LOOKAHEAD_MAX_FRAMES
+            else 0)
+
+
+def resolve_lookahead(lookahead, block_frames: int, device_type: str) -> int:
+    """The horizon depth H for an engine's `lookahead` option: "auto" is
+    _card_lookahead on "cuda" and the reference's rule elsewhere (the CPU,
+    as the reference's jax engine resolves it); an int is taken as it is.
+    0 is the per-block path, and so is 1."""
+    if lookahead == "auto":
+        H = (_card_lookahead(block_frames) if device_type == "cuda"
+             else _reference_lookahead(block_frames))
+    else:
+        H = max(int(lookahead), 0)
+    return 0 if H == 1 else H
+
+
+def resolve_ratio_ladder(ratio_ladder: str, fetch: str,
+                         max_pitch_ratio: float, device_type: str) -> list:
+    """The rungs (max pitch ratios) a windows engine renders at: "auto"
+    adds the 2.0 rung below the envelope, as the reference does, except on
+    a CUDA card; "off", the gather fetch or an envelope of 2.0 or less is
+    the top rung only. On the card both rungs read the same taps at the
+    same speed, and the two-rung ladder was never faster per block by more
+    than the spread of the rounds, with 2 graphs more to capture at 1024
+    voices (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §5, "Dispatch
+    defaults")."""
+    if (ratio_ladder == "auto" and fetch.startswith("windows")
+            and max_pitch_ratio > 2.0 and device_type != "cuda"):
+        return [2.0, max_pitch_ratio]
+    return [max_pitch_ratio]
+
+
 @dataclasses.dataclass
 class BlockResult:
     """Host-visible outputs of one processed block."""
@@ -385,10 +441,8 @@ class AudioEngine:
         # (region_rows(B, rung)): the same taps, so the same output. On the
         # TPU the rung narrowed the kernel's weight slab; the CUDA kernel
         # has no slab, and chip_smoke.py times it at both rungs.
-        self._ratio_ladder = [self.max_pitch_ratio]
-        if (ratio_ladder == "auto" and fetch.startswith("windows")
-                and self.max_pitch_ratio > 2.0):
-            self._ratio_ladder = [2.0, self.max_pitch_ratio]
+        self._ratio_ladder = resolve_ratio_ladder(
+            ratio_ladder, fetch, self.max_pitch_ratio, self.device.type)
         # native host core (native/zl_hostcore.cpp): one-pass program build +
         # state advance; the numpy path remains the reference implementation
         self.use_native_host = False
@@ -410,16 +464,13 @@ class AudioEngine:
         # event lands (note latency stays one block). The horizon is H
         # per-block programs built by simulating the host's own per-block
         # advance, so its output is bit-identical to per-block output.
-        # "auto" fills a 2048-frame window (the reference's choice, made on
-        # the TPU); on the card the horizon moves the render's enqueue from
-        # the engine thread to the speculative chain's dispatch thread.
-        if lookahead == "auto":
-            self._lookahead = (max(min(16, 2048 // block_frames), 0)
-                               if block_frames <= 2048 else 0)
-        else:
-            self._lookahead = max(int(lookahead), 0)
-        if self._lookahead == 1:
-            self._lookahead = 0  # a 1-block horizon is the per-block path
+        # "auto" on the CPU fills a 2048-frame window (the reference's
+        # choice, made on the TPU); on a card it is _card_lookahead, the
+        # card's own measurement (the horizon moves the render's enqueue
+        # from the engine thread to the speculative chain's dispatch
+        # thread).
+        self._lookahead = resolve_lookahead(lookahead, block_frames,
+                                            self.device.type)
         self._h_slices: list = []       # pending device outputs
         self._h_snaps: list = []        # pool state AFTER each slice
         self._h_died: list = []         # (clip_id, position_id) per slice
@@ -841,12 +892,16 @@ class AudioEngine:
 
     # the narrow rung only paid on the TPU for kernels large enough to be
     # stream-bound (the reference's probes): buckets below this size
-    # dispatch the top rung only, as the reference does
+    # dispatch the top rung only, as the reference does. A card's ladder
+    # is the top rung alone (resolve_ratio_ladder), so there it is not
+    # read.
     RUNG_MIN_SHARD_VOICES = 512
 
     def _allowed_rungs(self, bucket: Optional[int]) -> list:
         """Rungs warmed and dispatched for this bucket size (judged by its
         per-shard voice count)."""
+        if len(self._ratio_ladder) == 1:
+            return self._ratio_ladder
         v = bucket if bucket is not None else self.pool.num_voices
         if v // self.mesh.size >= self.RUNG_MIN_SHARD_VOICES:
             return self._ratio_ladder
@@ -957,7 +1012,8 @@ class AudioEngine:
             return fn(prog)
         key = self._graph_key(kind, prog.shape[0], fetch, rmax, sound)
         out, captured = self._graphs.render(key, fn, prog, sound,
-                                            warm=not late)
+                                            warm=not late,
+                                            profiler=self.profiler)
         if captured and late:
             with self._stats_lock:
                 self.late_captures += 1

@@ -77,6 +77,15 @@ from . import render as render_mod
 _FIELDS = len(render_mod.RenderOutputs._fields)
 
 
+# a replay's parts, as BlockProfiler spans: the wait for a staging slot's
+# last copy (event.synchronize()), np.copyto into the slot and the copy to
+# the device, the graphs' replay() (a chain's copies between cards
+# included), clone() of the flat outputs (with the segments' end events),
+# and the launch tally with unflatten's views
+DISPATCH_SPANS = ("dispatch_slot_wait", "dispatch_stage", "dispatch_replay",
+                  "dispatch_clone", "dispatch_unflatten")
+
+
 class GraphKey(NamedTuple):
     kind: str            # "block" or "horizon"
     voices: int          # program rows rendered: the bucket
@@ -190,21 +199,25 @@ class _Segment:
         self.contrib = self.parts = self.peaks = None
         self.fold = self.init = self.mix = None
 
-    def stage(self, prog: np.ndarray) -> None:
+    def stage(self, prog: np.ndarray) -> float:
         """The segment's rows of the host program into a staging slot, then
         into the static program (non-blocking from pinned memory on CUDA),
-        on the device's current stream after the last replay's end."""
+        on the device's current stream after the last replay's end. Returns
+        the seconds spent waiting for the slot's last copy."""
         if self.done is not None:
             torch.cuda.current_stream().wait_event(self.done)
         self.slot ^= 1
         event = self.copied[self.slot]
+        t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
+        waited = time.perf_counter() - t0
         np.copyto(self.staging[self.slot].numpy(), prog[self.rows])
         self.prog.copy_(self.staging[self.slot],
                         non_blocking=event is not None)
         if event is not None:
             event.record()
+        return waited
 
     def statics(self) -> list:
         return [self.prog, self.init, *self.staging]
@@ -229,13 +242,17 @@ class _Entry:
         self.bytes = 0
         self.dead = False
 
-    def stage(self, prog: np.ndarray) -> None:
+    def stage(self, prog: np.ndarray) -> float:
+        """Every segment's rows staged (_Segment.stage); returns the seconds
+        spent waiting for staging slots."""
         if tuple(prog.shape) != self.shape:
             raise ValueError(f"program {tuple(prog.shape)} for a graph of "
                              f"{self.shape}")
+        waited = 0.0
         for seg in self.segments:
             with _on(seg.device):
-                seg.stage(prog)
+                waited += seg.stage(prog)
+        return waited
 
     def last_program(self) -> np.ndarray:
         return np.concatenate([seg.staging[seg.slot].numpy()
@@ -280,7 +297,7 @@ class RenderGraphs:
         return list(self._entries)
 
     def render(self, key: GraphKey, fn, prog: np.ndarray, bound,
-               warm: bool = False) -> tuple:
+               warm: bool = False, profiler=None) -> tuple:
         """The render of `prog` (host int32) at `key`: a replay of its
         graphs, or, the first time, a capture of `fn` whose warm-up render
         is returned. `fn(prog)` renders a program (host, or a device
@@ -290,8 +307,9 @@ class RenderGraphs:
         they are no longer the graphs' (the bank grew while this render
         waited), the render is stale and runs once eagerly, without a
         graph (a speculative horizon's, which the engine then discards). A
-        `warm` render (the engine's warmup) is left out of `replays`.
-        Returns (outputs, captured)."""
+        `warm` render (the engine's warmup) is left out of `replays`. A
+        replay records its parts on `profiler` (a BlockProfiler), when
+        given, under DISPATCH_SPANS. Returns (outputs, captured)."""
         while True:
             entry = self._entries.get(key)
             if entry is None:
@@ -307,14 +325,18 @@ class RenderGraphs:
             with entry.lock:
                 if entry.dead:
                     continue
-                return self._replay(entry, prog, warm), False
+                return self._replay(entry, prog, warm, profiler), False
 
-    def _replay(self, entry: _Entry, prog: np.ndarray, warm: bool):
-        entry.stage(prog)
+    def _replay(self, entry: _Entry, prog: np.ndarray, warm: bool,
+                profiler=None):
+        t0 = time.perf_counter()
+        waited = entry.stage(prog)
+        t1 = time.perf_counter()
         segs = entry.segments
         if entry.mix_in is None:
             with _on(self.device):
                 entry.graph.replay()
+                t2 = time.perf_counter()
                 flat = entry.flat.clone()
         else:
             for seg in segs:
@@ -330,16 +352,24 @@ class RenderGraphs:
                 for dst, seg in zip(entry.peaks_in, segs):
                     dst.copy_(seg.peaks)
                 entry.graph.replay()
+                t2 = time.perf_counter()
                 flat = entry.flat.clone()
         for seg in segs:
             if seg.done is not None:
                 with _on(seg.device):
                     seg.done.record()
+        t3 = time.perf_counter()
         self._count(entry)
         if not warm:
             with self._stats_lock:
                 self.replays += 1
-        return unflatten(flat, entry.layout, entry.key.kind == "horizon")
+        out = unflatten(flat, entry.layout, entry.key.kind == "horizon")
+        if profiler is not None:
+            for name, s in zip(DISPATCH_SPANS, (
+                    waited, t1 - t0 - waited, t2 - t1, t3 - t2,
+                    time.perf_counter() - t3)):
+                profiler.record(name, s)
+        return out
 
     @staticmethod
     def _count(entry: _Entry) -> None:

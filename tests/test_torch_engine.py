@@ -319,6 +319,34 @@ def test_default_engine_resolution():
             AudioEngine("cpu", num_voices=16, **kw)
 
 
+@pytest.mark.parametrize("B", [128, 256, 1024])
+def test_cpu_engine_never_reads_the_card_rule(monkeypatch, B):
+    """"auto" on the CPU is the reference's rule: the card's measured rule
+    (engine._card_lookahead) is not consulted, at the card's measured
+    block sizes too."""
+    from libzl_tpu_torch.engine import engine as engine_mod
+
+    def card_rule(block_frames):
+        raise AssertionError("the CPU engine read the card's rule")
+
+    monkeypatch.setattr(engine_mod, "_card_lookahead", card_rule)
+    eng = AudioEngine("cpu", block_frames=B, num_voices=16)
+    assert eng._lookahead == min(16, 2048 // B)
+
+
+def test_one_rung_ladder_ignores_the_rung_size_threshold():
+    """A one-rung ladder (a card's "auto", or "off") dispatches its rung at
+    every bucket, whatever RUNG_MIN_SHARD_VOICES says."""
+    eng = AudioEngine("cpu", num_voices=64, fetch="windows",
+                      ratio_ladder="off")
+    eng.RUNG_MIN_SHARD_VOICES = 1
+    assert [eng._allowed_rungs(s) for s in (None, 8, 64)] == [[4.0]] * 3
+    two = AudioEngine("cpu", num_voices=64, fetch="windows")
+    two.RUNG_MIN_SHARD_VOICES = 32
+    assert two._allowed_rungs(64) == [2.0, 4.0]
+    assert two._allowed_rungs(16) == [4.0]
+
+
 def test_bad_options_are_rejected():
     with pytest.raises(ValueError):
         AudioEngine("cpu", num_voices=8, fetch="windows:g4")

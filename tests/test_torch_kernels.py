@@ -236,10 +236,11 @@ def test_engine_on_card_matches_cpu(B):
 
 @pytest.mark.cuda
 def test_horizon_engine_on_card_matches_per_block():
-    """The default engine on "cuda" (H=16 horizons rendered on the engine
-    thread and, speculatively, on the dispatch thread) against the same
-    engine at lookahead=0, V=64, B=128, through two adoptions and an
-    event-block rebuild (a note-off): voice peaks atol 2e-6; master rtol
+    """The horizon engine on "cuda" (lookahead=16, set whatever "auto"
+    resolves to: H=16 horizons rendered on the engine thread and,
+    speculatively, on the dispatch thread) against the same engine at
+    lookahead=0, V=64, B=128, through
+    two adoptions and an event-block rebuild (a note-off): voice peaks atol 2e-6; master rtol
     1e-5, atol 2e-6 per voice in the densest lane (the engine tolerance:
     cuBLAS handles are per thread, so bit-equality is not assumed across
     threads). Every horizon slice and per-block block launched the kernel
@@ -249,7 +250,7 @@ def test_horizon_engine_on_card_matches_per_block():
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V, B = 64, 128
-    hz = AudioEngine("cuda", block_frames=B, num_voices=V)
+    hz = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=16)
     pb = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=0)
     assert hz._lookahead == 16 and hz.fetch == "windows"
     for e in (hz, pb):
@@ -583,19 +584,40 @@ def test_mixdown_kernel_refuses_what_it_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", sorted(chip_smoke.CARD_LOOKAHEAD))
+def test_card_defaults_resolve_as_measured(B):
+    """On a card "auto" resolves as the sweep decided (PERF.md §5): the
+    engine's lookahead and ratio ladder, the bridge's bounce drain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's defaults")
+    from libzl_tpu_torch.capi.bridge import EngineRuntime
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    e = AudioEngine("cuda", block_frames=B, num_voices=64)
+    assert e.fetch == "windows"
+    assert e._lookahead == chip_smoke.CARD_LOOKAHEAD[B]
+    assert e._ratio_ladder == chip_smoke.CARD_LADDER
+    assert e._allowed_rungs(None) == chip_smoke.CARD_LADDER
+    rt = EngineRuntime(block_frames=B, num_voices=64, device="cuda")
+    assert rt.bounce_drain_blocks == chip_smoke.CARD_DRAIN
+    assert rt.engine._lookahead == chip_smoke.CARD_LOOKAHEAD[B]
+
+
+@pytest.mark.cuda
 def test_render_graphs_on_card_match_eager():
-    """The default engine on "cuda" with render graphs (warmed: one CUDA
-    graph a render shape, replayed a block or horizon) against the same
-    engine rendering eagerly (render_graphs "off"), V=64, B=128, through
-    adoptions and an event-block rebuild: every output bit-equal; every
-    render a replay; each replay counted its kernels' launches."""
+    """The horizon engine (lookahead=16) on "cuda" with render graphs
+    (warmed: one CUDA graph a render shape, replayed a block or horizon)
+    against the same engine rendering eagerly (render_graphs "off"),
+    V=64, B=128, through adoptions and an event-block rebuild: every output
+    bit-equal; every render a replay; each replay counted its kernels'
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V, B = 64, 128
-    on = AudioEngine("cuda", block_frames=B, num_voices=V)
-    off = AudioEngine("cuda", block_frames=B, num_voices=V,
+    on = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=16)
+    off = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=16,
                       render_graphs="off")
     for e in (on, off):
         chip_smoke.build_session(e, num_voices=V, num_clips=8)
@@ -628,9 +650,10 @@ def test_render_graphs_on_card_match_eager():
 @pytest.mark.parametrize("plan", ["one-card", "one-card-chained",
                                   "across-cards"])
 def test_mesh_render_graphs_on_card_match_eager(plan):
-    """A 2-shard mesh of the default engine, V=64, B=128, with render
-    graphs (one graph a render on cuda:0; the chain of per-segment graphs,
-    forced on cuda:0 or across cuda:0 and cuda:1) against the same mesh
+    """A 2-shard mesh of the horizon engine (lookahead=16), V=64, B=128,
+    with render graphs (one graph a render on cuda:0; the chain of
+    per-segment graphs, forced on cuda:0 or across cuda:0 and cuda:1)
+    against the same mesh
     rendering eagerly (render_graphs "off") and the unsharded engine,
     through adoptions and an event-block rebuild: every output bit-equal;
     every render of the graph mesh a replay; the kernels launched 2 x the
@@ -646,13 +669,14 @@ def test_mesh_render_graphs_on_card_match_eager(plan):
     V, B = 64, 128
     mesh = make_mesh(devices=["cuda:0", "cuda:1"] if plan == "across-cards"
                      else ["cuda:0"] * 2)
-    on = AudioEngine("cuda:0", block_frames=B, num_voices=V, mesh=mesh)
+    on = AudioEngine("cuda:0", block_frames=B, num_voices=V, mesh=mesh,
+                     lookahead=16)
     if plan == "one-card-chained":
         on._graphs = RenderGraphs(mesh.devices[0], [
             (d, i, 1) for i, d in enumerate(mesh.devices)])
     off = AudioEngine("cuda:0", block_frames=B, num_voices=V, mesh=mesh,
-                      render_graphs="off")
-    one = AudioEngine("cuda:0", block_frames=B, num_voices=V)
+                      lookahead=16, render_graphs="off")
+    one = AudioEngine("cuda:0", block_frames=B, num_voices=V, lookahead=16)
     engines = (on, off, one)
     for e in engines:
         chip_smoke.build_session(e, num_voices=V, num_clips=8)
