@@ -10,6 +10,9 @@
     python3 chip_smoke.py --graphs-only       # phases 1, 2, 16
     python3 chip_smoke.py --timing-only       # phases 1, 2, 5
     python3 chip_smoke.py --policy-only       # phases 1, 2, 17
+    python3 chip_smoke.py --first-blocks-only # phases 1, 2, 18
+    python3 chip_smoke.py ... --switch-ms MS  # the interpreter's switch
+                                              # interval, from the start
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
 
@@ -109,6 +112,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    per-block delivery, the session loaded while it runs: no pump error, no
    failed speculative build; blocks rendered against block periods,
    phase_stats, SLO misses per kind and the per-block copy wait printed;
+   every deadline miss printed with its kind, overrun and cause (a
+   BlockTracer on the engine from before the pump starts, miss_cause:
+   a recapture after the bank grew, a late capture, a collection, a
+   graph's first realtime replay, the commands applied, host_program, a
+   dispatch part, horizon_build / adopt_wait / emit (each "stalled: GIL
+   or scheduler" at 10x its median), or the time outside every span: a
+   deferred clip render swapped in, the bank's upload, else GIL or
+   scheduler), every miss named;
    the kernels' launches, counted from a drained engine held at the
    runtime lock, equal its windows dispatches and renders;
 9. shim         — the port's libzl.so (native/libzl_shim.cpp built over the
@@ -185,6 +196,26 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    against [4] on the per-block engine at B=128 and 1024 (graphs, capture
    seconds, graph MiB, realtime). Each prints the decision PERF.md's rule
    takes from its numbers beside what "auto" resolves to in the code.
+   Every lookahead setting prints its graphs warm-replayed and its warm
+   replays, and each deadline miss with its cause (phase 8's naming), the
+   first block after warmup's apart; the pump's by cause;
+18. first blocks — the first 8 blocks after warmup: the session's
+   default engines at B=128 (H=16) and B=1024 (H=0), the per-block engine
+   at B=128 and a lookahead=2 engine at B=1024; for each, an engine never
+   warmed, then 2 engines (6 under --first-blocks-only) built fresh,
+   warmed and synchronized, 8 chained blocks each under a BlockTracer.
+   Held: every captured graph warm-replayed, no late capture or
+   recapture, the caching allocator's segment.all.allocated unchanged
+   over the 8 blocks, no generation-2 collection in them, every output
+   field of every block bit-equal to the never-warmed engine's. Printed:
+   the first block's ms beside blocks 2-8's p50, its spans, the
+   collections, segments and alloc retries, and each miss with its cause.
+   Then the default engines' first 8 blocks after a clip load that
+   outgrows the bank (block 1 captures every graph again): held, every
+   graph captured again and warm-replayed, no late capture, the launches
+   equal to the dispatches with the warm launches apart, the bits equal
+   to a never-warmed engine's; printed, block 1's ms and capture time,
+   and the first realtime replays in blocks 2-8;
 
 Every phase prints its wall seconds. The line before the last holds the
 kernels' record as JSON, one entry a kernel (its launches are those of
@@ -202,12 +233,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -317,20 +350,34 @@ def renders(engines) -> int:
 
 def reset_counts(engines) -> None:
     """Zero the engines' dispatch counts and their render graphs' replay
-    counts."""
+    counts and warm launches."""
     for e in engines:
         e.fetch_dispatches = {"windows": 0, "gather": 0}
         e.render_dispatches = {"block": 0, "horizon": 0}
         e.late_captures = 0
         if e._graphs is not None:
             e._graphs.replays = e._graphs.stale = 0
+            getattr(e._graphs, "warm_launches", {}).clear()
+
+
+def dispatched_launches(launches: dict, engines) -> dict:
+    """`launches` less the engines' graphs' warm launches (warm replays,
+    a recapture's warm-up renders: launches no dispatch made)."""
+    out = dict(launches)
+    for e in engines:
+        if e._graphs is not None:
+            for name, n in getattr(e._graphs, "warm_launches", {}).items():
+                out[name] -= n
+    return out
 
 
 def check_launches(launches: dict, windows: int, engines, label: str):
     """The voice prep, fetch and voice post kernels launched once a windows
     block (x shards: `windows` counts them), the mixdown once a shard a
     render, the finish once a render; every render of a graph engine a
-    graph replay or a capture (check_graph_renders)."""
+    graph replay or a capture (check_graph_renders). The graphs' warm
+    launches are counted apart (dispatched_launches)."""
+    launches = dispatched_launches(launches, engines)
     for name in ("voice_prep", "fetch_interp", "voice_post"):
         check(launches[name] == windows,
               f"{label}: {name} kernel launched {launches[name]} times for "
@@ -2349,13 +2396,51 @@ def pump_launches(engine, label: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def traced_pumps():
+    """A BlockTracer on the engine of each runtime whose pump starts inside
+    the block, put on before the pump's warmup and first block
+    (EngineRuntime.start_pump wrapped); yields the tracers."""
+    from libzl_tpu_torch.capi import bridge as bridge_mod
+
+    cls = bridge_mod.EngineRuntime
+    start = cls.start_pump
+    tracers = []
+
+    def start_pump(rt):
+        if rt._pump is None:
+            tracers.append(BlockTracer(rt.engine))
+        return start(rt)
+
+    cls.start_pump = start_pump
+    try:
+        yield tracers
+    finally:
+        cls.start_pump = start
+        for t in tracers:
+            t.close()
+
+
+def named_pump(device, wavs: list, card: str, label: str, **kw) -> dict:
+    """bench.measure_pump with a BlockTracer on the engine from before the
+    pump starts (traced_pumps): each deadline miss printed with its cause,
+    the count by cause returned as "causes"."""
+    with traced_pumps() as tracers:
+        r = bench.measure_pump(device, wavs, PUMP_SECONDS, **kw)
+    r["causes"] = print_misses(card, label, tracers[0].misses)
+    missed = r["stats"]["slo_missed"]
+    check(len(tracers[0].misses) == missed, f"{label}: named "
+          f"{len(tracers[0].misses)} of {missed} misses")
+    return r
+
+
 def phase_pump(device, wavs: list, card: str) -> dict:
     """The wall-clock pump on the card with a null sink and per-block
     delivery (bounce drain 1: what a pacing sink gets), the session loaded
-    while it runs; PUMP_SECONDS of it measured (bench.measure_pump)."""
-    r = bench.measure_pump(
-        device, wavs, PUMP_SECONDS, before=reset_counts_locked,
-        after=lambda engine: pump_launches(engine, "pump"))
+    while it runs; PUMP_SECONDS of it measured (bench.measure_pump), each
+    deadline miss named (named_pump)."""
+    r = named_pump(device, wavs, card, "pump", before=reset_counts_locked,
+                   after=lambda engine: pump_launches(engine, "pump"))
     launches, stats, waits = r["after"], r["stats"], r["copy_wait"]
     print(f"[{card}] pump (1024 voices, B=128, null sink, per-block "
           f"delivery): {r['blocks']} blocks rendered in {r['wall']:.2f} s of "
@@ -3004,6 +3089,323 @@ def phase_bench(card: str) -> tuple:
     return line, launches
 
 
+# ------------------------------- deadline misses, named (phases 8, 17, 18)
+
+# the engine's top-level spans of a block, on the thread that runs it,
+# and the time its commands took (BlockTracer's)
+TOP_SPANS = ("commands", "host_program", "dispatch", "horizon_build",
+             "adopt_wait", "emit")
+
+
+class BlockTracer:
+    """Per-block records of one engine, taken from outside it: its
+    instance's process_block, profiler, _note_slo_miss, command
+    application and render graphs' _replay and warm are wrapped, and a
+    gc.callbacks entry times Python's collections. A record holds the
+    block's number and ms, its spans on the block's thread (TOP_SPANS and
+    graphs.DISPATCH_SPANS, summed, ms), the collections that ran while it
+    did ([generation, ms, on the block's thread]), the commands it applied
+    and their ms (span "commands"), its first realtime replays of a graph
+    on that thread, its late captures and recaptures, the graphs' warm
+    replays on its thread (span "warm", inside another span: a rebind's),
+    the deferred clip renders waiting at its start, whether the bank was uploaded, and, with
+    `memory`, the caching allocator's segment.all.allocated and
+    num_alloc_retries before and after. A missed block's record also holds
+    its kind, overrun and cause (miss_cause). Keeps every missed block
+    (`misses`) and the first `keep` blocks (`blocks`). `close()` takes
+    every wrapper off."""
+
+    def __init__(self, engine, keep: int = 0, memory: bool = False):
+        import weakref
+
+        self.engine = engine
+        self.keep = keep
+        self.memory = memory
+        self.blocks = []
+        self.misses = []
+        self.collections = []       # every collection while installed
+        self.history = {}           # part -> its ms in each block before
+        self._cur = None
+        self._thread = None
+        self._gc_t0 = 0.0
+        self._seen = weakref.WeakKeyDictionary()   # entry -> {thread}
+        self._prof = None
+        tracer = self
+        block = engine.process_block
+        note = engine._note_slo_miss
+
+        def process_block():
+            rec = tracer._begin()
+            try:
+                return block()
+            finally:
+                tracer._end(rec)
+
+        def note_slo_miss(kind, busy, budget_blocks):
+            rec = tracer._cur
+            if rec is not None and threading.get_ident() == tracer._thread:
+                rec["miss"] = dict(kind=kind, budget_blocks=budget_blocks,
+                                   overrun_ms=(busy - budget_blocks
+                                               * engine.slo.budget) * 1e3)
+            return note(kind, busy, budget_blocks)
+
+        engine.process_block = process_block
+        engine._note_slo_miss = note_slo_miss
+        for name in ("_apply_clip_command", "_apply_timer_command"):
+            setattr(engine, name, self._timed_command(getattr(engine, name)))
+        g = engine._graphs
+        if g is not None:
+            replay = g._replay
+
+            def traced_replay(entry, prog, warm, profiler=None):
+                rec = tracer._cur
+                me = threading.get_ident()
+                if not warm and rec is not None and me == tracer._thread:
+                    threads = tracer._seen.setdefault(entry, set())
+                    if me not in threads:
+                        threads.add(me)
+                        rec["first_replays"] += 1
+                return replay(entry, prog, warm, profiler)
+
+            g._replay = traced_replay
+            warm = getattr(g, "warm", None)
+
+            def traced_warm(keys=None):
+                t0 = time.perf_counter()
+                try:
+                    return warm(keys)
+                finally:
+                    rec = tracer._cur
+                    if rec is not None and threading.get_ident() == \
+                            tracer._thread:
+                        rec["spans"]["warm"] = (rec["spans"].get("warm", 0.0)
+                                                + (time.perf_counter() - t0)
+                                                * 1e3)
+
+            if warm is not None:
+                g.warm = traced_warm
+        gc.callbacks.append(self._gc)
+
+    def _timed_command(self, apply):
+        """`apply` (a command's application) timed into the block's
+        "commands" span and counted, the outermost call only (a timer
+        command applies clip commands)."""
+        tracer = self
+
+        def timed(*args, **kw):
+            rec = tracer._cur
+            if (rec is None or threading.get_ident() != tracer._thread
+                    or rec["in_command"]):
+                return apply(*args, **kw)
+            rec["in_command"] = True
+            t0 = time.perf_counter()
+            try:
+                return apply(*args, **kw)
+            finally:
+                rec["in_command"] = False
+                rec["commands"] += 1
+                rec["spans"]["commands"] = (rec["spans"].get("commands", 0.0)
+                                            + (time.perf_counter() - t0)
+                                            * 1e3)
+
+        return timed
+
+    def close(self) -> None:
+        for name in ("process_block", "_note_slo_miss",
+                     "_apply_clip_command", "_apply_timer_command"):
+            self.engine.__dict__.pop(name, None)
+        if self.engine._graphs is not None:
+            self.engine._graphs.__dict__.pop("_replay", None)
+            self.engine._graphs.__dict__.pop("warm", None)
+        if self._gc in gc.callbacks:
+            gc.callbacks.remove(self._gc)
+
+    def _gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+            return
+        ms = (time.perf_counter() - self._gc_t0) * 1e3
+        mine = threading.get_ident() == self._thread
+        self.collections.append([info["generation"], ms, mine])
+        rec = self._cur
+        if rec is not None:
+            rec["gc"].append([info["generation"], ms, mine])
+
+    def _wrap_profiler(self) -> None:
+        """The engine's current profiler (a round may replace it) records
+        into the block's spans too, from the block's thread only."""
+        prof = self._prof = self.engine.profiler
+        span, record = prof.span, prof.record
+        tracer = self
+
+        def add(name, seconds):
+            rec = tracer._cur
+            if rec is not None and threading.get_ident() == tracer._thread:
+                rec["spans"][name] = (rec["spans"].get(name, 0.0)
+                                      + seconds * 1e3)
+
+        @contextlib.contextmanager
+        def traced_span(name):
+            t0 = time.perf_counter()
+            try:
+                with span(name):
+                    yield
+            finally:
+                add(name, time.perf_counter() - t0)
+
+        def traced_record(name, seconds):
+            add(name, seconds)
+            record(name, seconds)
+
+        prof.span, prof.record = traced_span, traced_record
+
+    def _graph_counts(self) -> tuple:
+        g = self.engine._graphs
+        return (self.engine.late_captures,
+                0 if g is None else g.recaptures)
+
+    def _mem(self) -> tuple:
+        s = torch.cuda.memory_stats(self.engine.device)
+        return (s.get("segment.all.allocated", 0),
+                s.get("num_alloc_retries", 0))
+
+    def _begin(self) -> dict:
+        e = self.engine
+        if e.profiler is not self._prof:
+            self._wrap_profiler()
+        rec = dict(block=e.total_blocks + 1, spans={}, gc=[],
+                   commands=0, in_command=False,
+                   first_replays=0, pending=len(e._pending_renders),
+                   bank=e._bank_version_on_device, miss=None,
+                   counts=self._graph_counts(),
+                   mem=self._mem() if self.memory else None)
+        self._thread = threading.get_ident()
+        self._cur = rec
+        return rec
+
+    def _end(self, rec: dict) -> None:
+        self._cur = None
+        e = self.engine
+        late, recaptures = self._graph_counts()
+        rec["late"] = late - rec["counts"][0]
+        rec["recaptures"] = recaptures - rec["counts"][1]
+        rec["bank_upload"] = rec.pop("bank") != e._bank_version_on_device
+        rec["ms"] = rec["spans"].get("process_block", 0.0)
+        del rec["in_command"]
+        if self.memory:
+            rec["mem"] = (rec["mem"], self._mem())
+        parts = block_parts(rec)
+        if rec["miss"] is not None:
+            rec["miss"]["cause"] = miss_cause(rec, parts, self.history)
+            self.misses.append(rec)
+        for k, v in parts.items():
+            self.history.setdefault(k, []).append(v)
+        if len(self.blocks) < self.keep:
+            self.blocks.append(rec)
+
+
+def block_parts(rec: dict) -> dict:
+    """A block's parts in ms: its top-level spans (TOP_SPANS), the time
+    outside them, and a dispatch's parts (graphs.DISPATCH_SPANS)."""
+    from libzl_tpu_torch.engine.graphs import DISPATCH_SPANS
+
+    spans = rec["spans"]
+    parts = {k: spans.get(k, 0.0) for k in TOP_SPANS}
+    parts["outside every span"] = max(rec["ms"] - sum(parts.values()), 0.0)
+    parts.update((k, spans[k]) for k in DISPATCH_SPANS if k in spans)
+    return parts
+
+
+# a part this many times its median over the blocks before (and at least
+# STALL_MIN_BLOCKS of them) did no more work: its thread waited
+STALL_RATIO = 10.0
+STALL_MIN_BLOCKS = 20
+# parts whose work varies from block to block (the commands applied) or
+# that wait by design (for the chain's next horizon, for a staging slot's
+# last copy on the card)
+STALL_EXEMPT = ("commands", "adopt_wait", "dispatch_slot_wait")
+
+
+def miss_cause(rec: dict, parts: dict, history: dict) -> str:
+    """A missed block's cause, from its record (BlockTracer), tried in
+    order: a recapture after the bank grew; a late capture; collections on
+    the block's thread for at least half the overrun, then on another
+    thread (which held the GIL); a graph's first realtime replay on this
+    thread whose staging, replay and clone took half the overrun; then
+    the largest of the block's top-level parts (`parts`, block_parts): the
+    commands applied, a dispatch (named by its largest part),
+    host_program, horizon_build, adopt_wait, emit, or the time outside
+    every span (deferred clip renders swapped in, the bank's upload after
+    a clip load, else GIL or scheduler). A part at STALL_RATIO times its
+    median over the blocks before (not one of STALL_EXEMPT) is named
+    "stalled: GIL or scheduler" after it: its work is the same every
+    block. The thread's CPU clock cannot tell instead: on the card's host
+    time.thread_time() moves in steps of 10 ms."""
+    over = rec["miss"]["overrun_ms"]
+    spans = rec["spans"]
+    if rec["recaptures"]:
+        return "recapture after bank growth"
+    if rec["late"]:
+        return "late capture"
+    for on_block, where in ((True, ""), (False, " on another thread")):
+        runs = [(gen, ms) for gen, ms, mine in rec["gc"] if mine == on_block]
+        if runs and sum(ms for _, ms in runs) >= over / 2:
+            return (f"collection{where} (generation "
+                    f"{max(gen for gen, _ in runs)})")
+    first = sum(spans.get(k, 0.0) for k in ("dispatch_stage",
+                                            "dispatch_replay",
+                                            "dispatch_clone"))
+    if rec["first_replays"] and first >= over / 2:
+        return "first replay of a key"
+    top = {k: parts[k] for k in (*TOP_SPANS, "outside every span")}
+    big = max(top, key=top.get)
+    name = big
+    if big == "dispatch":
+        inner = {k: v for k, v in parts.items() if k.startswith("dispatch_")}
+        if inner:
+            big = max(inner, key=inner.get)
+            name = f"dispatch ({big})"
+    elif big == "outside every span":
+        if rec["pending"]:
+            return "deferred clip render swapped in"
+        if rec["bank_upload"]:
+            return "bank upload after a clip load"
+    past = history.get(big, [])
+    if (big not in STALL_EXEMPT and len(past) >= STALL_MIN_BLOCKS
+            and parts[big] >= STALL_RATIO * max(np.median(past), 1e-3)):
+        return f"{name}, stalled: GIL or scheduler"
+    if big == "outside every span":
+        return "outside every span (GIL or scheduler)"
+    return name
+
+
+def miss_line(rec: dict) -> str:
+    """One missed block: number, kind, ms, overrun, cause, its spans and
+    collections."""
+    m = rec["miss"]
+    spans = ", ".join(f"{k} {v:.3f}" for k, v in rec["spans"].items()
+                      if k != "process_block")
+    gcs = ", ".join(f"gen{gen} {ms:.3f}{'' if mine else ' (other thread)'}"
+                    for gen, ms, mine in rec["gc"])
+    return (f"block {rec['block']} {m['kind']} {rec['ms']:.3f} ms, over by "
+            f"{m['overrun_ms']:.3f} ms: {m['cause']} [spans {spans or 'none'}"
+            f"; gc {gcs or 'none'}; commands {rec['commands']}, first "
+            f"replays {rec['first_replays']}, deferred renders "
+            f"{rec['pending']}]")
+
+
+def print_misses(card: str, label: str, misses: list) -> dict:
+    """Each miss on its line, then the count by cause; returns it."""
+    causes = {}
+    for rec in misses:
+        print(f"[{card}] {label} miss: {miss_line(rec)}")
+        c = rec["miss"]["cause"]
+        causes[c] = causes.get(c, 0) + 1
+    print(f"[{card}] {label}: {len(misses)} misses by cause "
+          f"{json.dumps(causes)}")
+    return causes
+
+
 # ------------------------------------------------- dispatch policy (17)
 
 POLICY_ROUNDS = 3
@@ -3048,17 +3450,32 @@ def _add_kinds(total: dict, kinds: dict) -> dict:
 
 def policy_engine(device, B: int, H: int):
     """The session on a default engine at lookahead H, warmed; its first
-    block after warmup run and its deadline misses kept apart."""
+    block after warmup run and its deadline misses kept apart. A
+    BlockTracer (`e.tracer`) names every miss from here on: the first
+    block's is `e.first_misses`."""
     from libzl_tpu_torch.utils.profiling import SloCounter
 
     e = graph_engine(device, B, lookahead=H)
     e.warmup()
     torch.cuda.synchronize()
     e.slo = SloCounter(budget_seconds=B / SAMPLE_RATE)
+    e.tracer = BlockTracer(e)
     e.process_block().outputs.master.cpu()
     e.first_kinds = e.stats()["slo_by_kind"]
+    e.first_misses, e.tracer.misses = e.tracer.misses, []
     e.drain_speculation()
     return e
+
+
+def warm_replays(e) -> str:
+    """The engine's graphs, those warm-replayed and its warm replays."""
+    g = e._graphs
+    if g is None:
+        return "eager"
+    entries = list(g._entries.values())
+    warmed = sum(1 for x in entries if getattr(x, "warmed", None))
+    return (f"{warmed} of {len(entries)} graphs warm-replayed, "
+            f"{e.stats().get('graph_warm_replays', 0)} warm replays")
 
 
 def policy_round(e, paced: bool) -> dict:
@@ -3166,6 +3583,9 @@ def policy_lookahead(device, card: str) -> dict:
                 lag=_med_spread(lags)[0] if lags else None,
                 lag_rounds=lags, kinds=kinds, misses=_misses(kinds),
                 first=engines[H].first_kinds,
+                first_misses=engines[H].first_misses,
+                misses_named=engines[H].tracer.misses,
+                warm=warm_replays(engines[H]),
                 renders=float(np.median([x["renders"] for x in rs])),
                 kernels=float(np.median([x["kernels"] for x in rs])),
                 spans={name: _med_spread([x["spans"][name]["p50_ms"]
@@ -3180,6 +3600,7 @@ def policy_lookahead(device, card: str) -> dict:
                           if any(name in x["spans"] for x in rs)})
         for e in engines.values():
             e.drain_speculation()
+            e.tracer.close()
         del engines
         H, why = decide_lookahead(rows, B)
         auto = engine_mod.resolve_lookahead("auto", B, "cuda")
@@ -3203,7 +3624,10 @@ def policy_lookahead(device, card: str) -> dict:
                   + " / " + (", ".join(f"{k} {v:.4f}" for k, v in
                                        r["span_max"].items()) or "none")
                   + f"; renders {r['renders']:.3f} and kernels "
-                  f"{r['kernels']:.2f} a block")
+                  f"{r['kernels']:.2f} a block; {r['warm']}")
+            label = f"policy B={B} H={H_}"
+            print_misses(card, f"{label} first block", r.pop("first_misses"))
+            r["causes"] = print_misses(card, label, r.pop("misses_named"))
         print(f"[{card}] policy B={B}: decided H={H} ({why}); the code's "
               f"auto on cuda resolves to H={auto} "
               f"({'agrees' if auto == H else 'differs'}) "
@@ -3221,13 +3645,15 @@ def policy_pump(device, card: str) -> dict:
         for r in range(POLICY_ROUNDS):
             for H in _rotated(POLICY_PUMP_H, r):
                 with _env(LIBZL_TPU_LOOKAHEAD=H):
-                    p = bench.measure_pump(device, wavs, PUMP_SECONDS)
+                    p = named_pump(device, wavs, card,
+                                   f"policy pump B=128 H={H} round {r}")
                 check(p["error"] is None, f"pump H={H}: {p['error']!r}")
                 check(p["stats"]["spec_failures"] == 0,
                       f"pump H={H}: speculative build failed")
                 out[H].append(dict(share=p["share"],
                                    wait=p["copy_wait"],
-                                   kinds=p["stats"]["slo_by_kind"]))
+                                   kinds=p["stats"]["slo_by_kind"],
+                                   causes=p["causes"]))
     res = {}
     for H, rs in out.items():
         kinds = {}
@@ -3237,14 +3663,19 @@ def policy_pump(device, card: str) -> dict:
         wait50 = _med_spread([x["wait"].get("p50_ms", float("nan"))
                               for x in rs])
         wait_max = max(x["wait"].get("max_ms", float("nan")) for x in rs)
+        causes = {}
+        for x in rs:
+            for c, n in x["causes"].items():
+                causes[c] = causes.get(c, 0) + n
         res[H] = dict(share=share, wait_p50=wait50, wait_max=wait_max,
-                      kinds=kinds, misses=_misses(kinds))
+                      kinds=kinds, misses=_misses(kinds), causes=causes)
         print(f"[{card}] policy pump B=128 H={H}: share of its periods "
               f"median {share[0]:.4f} spread {share[1]:.4f} (rounds "
               + ", ".join(f"{x['share']:.4f}" for x in rs)
               + f"); copy_wait "
               f"p50 median {wait50[0]:.4f} ms, max {wait_max:.4f} ms; "
-              f"misses {res[H]['misses']} {json.dumps(kinds)}")
+              f"misses {res[H]['misses']} {json.dumps(kinds)}, by cause "
+              f"{json.dumps(causes)}")
     return res
 
 
@@ -3383,6 +3814,278 @@ def phase_policy(device, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------- first blocks (18)
+
+FIRST_BLOCKS = 8
+FIRST_ENGINES = 2           # a setting
+FIRST_ENGINES_FULL = 6      # under --first-blocks-only
+# (label, B, engine options): the session's default engines at B=128
+# (H=16) and B=1024 (H=0), the per-block engine at B=128 and a horizon
+# engine at B=1024
+FIRST_SETTINGS = (("default B=128", LIVE_BLOCK, {}),
+                  ("default B=1024", SUPER_BLOCK, {}),
+                  ("per-block B=128", LIVE_BLOCK, dict(lookahead=0)),
+                  ("H=2 B=1024", SUPER_BLOCK, dict(lookahead=2)))
+# the settings whose first blocks after a bank growth are measured too
+GROW_SETTINGS = FIRST_SETTINGS[:2]
+
+
+def grow_bank(e) -> None:
+    """Load a clip that outgrows the engine's sound bank and play it: the
+    next block uploads the grown bank and captures every graph again
+    (RenderGraphs.rebind)."""
+    from libzl_tpu_torch.io.wav import AudioData
+    from libzl_tpu_torch.models.clip import ClipAudioSource
+
+    n = e.bank.capacity_frames - e.bank._used + SAMPLE_RATE
+    t = np.arange(n, dtype=np.float32) / SAMPLE_RATE
+    wave = (0.3 * np.sin(2 * np.pi * 392.0 * t)).astype(np.float32)
+    capacity = e.bank.capacity_frames
+    clip = ClipAudioSource(e, audio=AudioData(wave[:, None], SAMPLE_RATE))
+    check(e.bank.capacity_frames > capacity, "the bank did not grow")
+    clip.play(loop=True, midi_channel=3)
+
+
+def first_blocks_run(device, B: int, opts: dict, warm: bool,
+                     want=None, grow: bool = False) -> dict:
+    """A fresh engine of the session, warmed (or not) and synchronized,
+    then FIRST_BLOCKS chained blocks under a BlockTracer with the
+    allocator's counts. Each block's outputs are copied into buffers made
+    before the first block (so holding them allocates nothing): `want`,
+    the flat outputs of an engine never warmed, gives their sizes and
+    what they must equal. With `grow`, FIRST_BLOCKS blocks run first, the
+    counts are zeroed and grow_bank loads a clip before the traced blocks,
+    whose kernels' launches are then held to the engine's dispatches
+    (check_launches: None, or what failed). Returns the tracer's records,
+    the engine's graph counts and the flat outputs (host)."""
+    from libzl_tpu_torch.engine.graphs import flatten
+    from libzl_tpu_torch.utils.profiling import SloCounter
+
+    gc.collect()                # the engines before this one
+    e = graph_engine(device, B, **opts)
+    if warm:
+        e.warmup()
+    g = e._graphs
+    if grow:
+        for _ in range(FIRST_BLOCKS):
+            e.process_block()
+        e.drain_speculation()
+        torch.cuda.synchronize()
+        reset_counts([e])
+        reset_launches()
+        grow_bank(e)
+    before = ((g.capture_seconds, e.stats().get("graph_warm_replays", 0))
+              if grow else (0.0, 0))
+    torch.cuda.synchronize()
+    bufs = ([torch.empty(w.numel(), device=device) for w in want]
+            if want is not None else None)
+    e.slo = SloCounter(budget_seconds=B / SAMPLE_RATE)
+    tracer = BlockTracer(e, keep=FIRST_BLOCKS, memory=True)
+    outs = []
+    try:
+        for i in range(FIRST_BLOCKS):
+            flat = flatten(e.process_block().outputs)
+            if bufs is None:
+                outs.append(torch.cat([t.reshape(-1) for t in flat]))
+            else:
+                torch.cat([t.reshape(-1) for t in flat], out=bufs[i])
+        torch.cuda.synchronize()
+        mem = tracer._mem()
+    finally:
+        tracer.close()
+    e.drain_speculation()
+    torch.cuda.synchronize()
+    launch_fault = None
+    if grow:
+        try:
+            check_launches(read_launches(), e.fetch_dispatches["windows"],
+                           [e], "after the bank grew")
+        except SmokeFailure as exc:
+            launch_fault = str(exc)
+    stats = e.stats()
+    entries = list(g._entries.values())
+    r = dict(blocks=tracer.blocks, misses=tracer.misses,
+             collections=tracer.collections,
+             mem=(tracer.blocks[0]["mem"][0], mem),
+             graphs=len(entries),
+             warmed=sum(1 for x in entries if getattr(x, "warmed", None)),
+             warm_replays=stats.get("graph_warm_replays", 0) - before[1],
+             capture_s=g.capture_seconds - before[0],
+             late=stats["late_captures"],
+             recaptures=stats["graph_recaptures"],
+             launch_fault=launch_fault,
+             outs=[t.cpu() for t in (bufs if bufs is not None else outs)])
+    return r
+
+
+def phase_first_blocks(device, card: str, engines: int) -> dict:
+    """For each FIRST_SETTINGS setting, an engine never warmed, then
+    `engines` engines built fresh, warmed and synchronized, each running
+    FIRST_BLOCKS chained blocks (first_blocks_run). Held, on each: every
+    captured graph warm-replayed, no late capture or recapture, the
+    allocator's segment.all.allocated unchanged over the blocks, no
+    generation-2 collection in them, every output bit-equal to the never
+    warmed engine's. Printed: the first block's ms beside blocks 2-8's
+    p50, its spans, the misses with their causes. Failed checks are
+    gathered and raised at the end, after every setting printed."""
+    failures = []
+    res = {}
+    print(f"[{card}] first blocks: switch interval "
+          f"{sys.getswitchinterval() * 1e3:g} ms, {engines} engines a "
+          f"setting, {FIRST_BLOCKS} chained blocks each")
+    for label, B, opts in FIRST_SETTINGS:
+        t0 = time.perf_counter()
+        cold = first_blocks_run(device, B, opts, warm=False)
+        runs = [first_blocks_run(device, B, opts, warm=True,
+                                 want=cold["outs"])
+                for _ in range(engines)]
+        first = [r["blocks"][0]["ms"] for r in runs]
+        # block 1 less the commands it applied (the session's start)
+        bare = [r["blocks"][0]["ms"] - r["blocks"][0]["spans"].get(
+            "commands", 0.0) for r in runs]
+        rest = [float(np.percentile([b["ms"] for b in r["blocks"][1:]], 50))
+                for r in runs]
+        first_missed = sum(1 for r in runs if r["blocks"][0]["miss"])
+        later = sum(len(r["misses"]) for r in runs) - first_missed
+        for n, r in enumerate(runs):
+            tag = f"first blocks {label} engine {n}"
+            bad = []
+            if r["warmed"] != r["graphs"]:
+                bad.append(f"{r['warmed']} of {r['graphs']} graphs "
+                           f"warm-replayed")
+            if r["late"] or r["recaptures"]:
+                bad.append(f"{r['late']} late captures, {r['recaptures']} "
+                           f"recaptures")
+            (seg0, retry0), (seg1, retry1) = r["mem"]
+            if seg1 != seg0:
+                grew = [b["block"] for b in r["blocks"]
+                        if b["mem"][1][0] != b["mem"][0][0]]
+                bad.append(f"segment.all.allocated {seg0} -> {seg1} "
+                           f"(blocks {grew})")
+            gen2 = [c for c in r["collections"] if c[0] == 2]
+            if gen2:
+                bad.append(f"{len(gen2)} generation-2 collections")
+            diff = [i for i, (a, b) in enumerate(zip(r["outs"],
+                                                     cold["outs"]))
+                    if not torch.equal(a, b)]
+            if diff:
+                bad.append(f"blocks {diff} differ from the never-warmed "
+                           f"engine")
+            b0 = r["blocks"][0]
+            print(f"[{card}] {tag}: block 1 {b0['ms']:.3f} ms "
+                  f"({b0['miss']['cause'] if b0['miss'] else 'in time'}), "
+                  f"blocks 2-{FIRST_BLOCKS} "
+                  + " ".join(f"{b['ms']:.3f}" for b in r["blocks"][1:])
+                  + f" ms; block 1 spans "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in b0["spans"].items()
+                              if k != "process_block")
+                  + f"; collections {[c[:2] for c in r['collections']]}; "
+                  f"segments {seg0} -> {seg1}, alloc retries {retry0} -> "
+                  f"{retry1}; {r['warmed']} of {r['graphs']} graphs "
+                  f"warm-replayed ({r['warm_replays']} warm replays); "
+                  + ("; ".join(bad) if bad else "checks hold"))
+            for rec in r["misses"]:
+                print(f"[{card}] {tag} miss: {miss_line(rec)}")
+            failures += [f"{tag}: {x}" for x in bad]
+        causes = {}
+        for r in runs:
+            for rec in r["misses"]:
+                c = rec["miss"]["cause"]
+                causes[c] = causes.get(c, 0) + 1
+        res[label] = dict(first_ms=first, rest_p50_ms=rest,
+                          first_less_commands_ms=bare,
+                          first_missed=first_missed, later_misses=later,
+                          causes=causes,
+                          cold_first_ms=cold["blocks"][0]["ms"])
+        print(f"[{card}] first blocks {label}: block 1 median "
+              f"{np.median(first):.3f} ms (engines "
+              + ", ".join(f"{x:.3f}" for x in first)
+              + f"), less its commands {np.median(bare):.3f} ms, against "
+              f"blocks 2-{FIRST_BLOCKS} p50 median {np.median(rest):.3f} ms "
+              f"({np.median(first) / np.median(rest):.2f}x, less commands "
+              f"{np.median(bare) / np.median(rest):.2f}x); "
+              f"block 1 missed in {first_missed} of {len(runs)} engines, "
+              f"blocks 2-{FIRST_BLOCKS} {later} misses; by cause "
+              f"{json.dumps(causes)}; never warmed: block 1 "
+              f"{cold['blocks'][0]['ms']:.3f} ms "
+              f"({time.perf_counter() - t0:.1f} s)")
+    for label, B, opts in GROW_SETTINGS:
+        res[f"{label} after a bank growth"] = first_blocks_grown(
+            device, card, label, B, opts, engines, failures)
+    check(not failures, "; ".join(failures))
+    return res
+
+
+def first_blocks_grown(device, card: str, label: str, B: int, opts: dict,
+                       engines: int, failures: list) -> dict:
+    """The first blocks after a clip load that outgrows the bank
+    (first_blocks_run with `grow`): an engine never warmed, then `engines`
+    warmed ones. Block 1 uploads the grown bank and captures every graph
+    again (rebind: the reference retraces there too); blocks 2-8 replay
+    them. Held, on each warmed engine: every graph captured again and
+    warm-replayed, no late capture, the launches equal to the dispatches
+    with the warm launches apart, every output bit-equal to the never
+    warmed engine's; failures go into `failures`. Printed: block 1's ms,
+    capture seconds and warm replays, blocks 2-8's ms and the first
+    realtime replays among them, each miss with its cause."""
+    t0 = time.perf_counter()
+    cold = first_blocks_run(device, B, opts, warm=False, grow=True)
+    runs = [first_blocks_run(device, B, opts, warm=True, want=cold["outs"],
+                             grow=True)
+            for _ in range(engines)]
+    for n, r in enumerate(runs):
+        tag = f"first blocks {label} after a bank growth, engine {n}"
+        bad = []
+        if r["recaptures"] != r["graphs"] or not r["graphs"]:
+            bad.append(f"{r['recaptures']} of {r['graphs']} graphs captured "
+                       f"again")
+        if r["warmed"] != r["graphs"]:
+            bad.append(f"{r['warmed']} of {r['graphs']} graphs "
+                       f"warm-replayed")
+        if r["late"]:
+            bad.append(f"{r['late']} late captures")
+        if r["launch_fault"]:
+            bad.append(r["launch_fault"])
+        diff = [i for i, (a, b) in enumerate(zip(r["outs"], cold["outs"]))
+                if not torch.equal(a, b)]
+        if diff:
+            bad.append(f"blocks {diff} differ from the never-warmed engine")
+        b0 = r["blocks"][0]
+        print(f"[{card}] {tag}: block 1 {b0['ms']:.3f} ms "
+              f"({b0['miss']['cause'] if b0['miss'] else 'in time'}; "
+              f"{b0['recaptures']} graphs captured again in "
+              f"{r['capture_s'] * 1e3:.1f} ms, {r['warm_replays']} warm "
+              f"replays), blocks 2-{FIRST_BLOCKS} "
+              + " ".join(f"{b['ms']:.3f}" for b in r["blocks"][1:])
+              + f" ms with {sum(b['first_replays'] for b in r['blocks'][1:])}"
+              f" first realtime replays; block 1 spans "
+              + ", ".join(f"{k} {v:.3f}" for k, v in b0["spans"].items()
+                          if k != "process_block")
+              + "; " + ("; ".join(bad) if bad else "checks hold"))
+        for rec in r["misses"]:
+            print(f"[{card}] {tag} miss: {miss_line(rec)}")
+        failures += [f"{tag}: {x}" for x in bad]
+    first = [r["blocks"][0]["ms"] for r in runs]
+    rest = [float(np.percentile([b["ms"] for b in r["blocks"][1:]], 50))
+            for r in runs]
+    later = [sum(b["ms"] for b in r["blocks"][1:] if b["first_replays"])
+             for r in runs]
+    causes = {}
+    for r in runs:
+        for rec in r["misses"]:
+            c = rec["miss"]["cause"]
+            causes[c] = causes.get(c, 0) + 1
+    print(f"[{card}] first blocks {label} after a bank growth: block 1 "
+          f"median {np.median(first):.3f} ms (engines "
+          + ", ".join(f"{x:.3f}" for x in first)
+          + f"), blocks 2-{FIRST_BLOCKS} p50 median {np.median(rest):.3f} "
+          f"ms, blocks with a first realtime replay {np.median(later):.3f} "
+          f"ms in all (median); misses by cause {json.dumps(causes)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return dict(first_ms=first, rest_p50_ms=rest, first_replay_ms=later,
+                causes=causes)
+
+
 @contextlib.contextmanager
 def _phase(name: str):
     t0 = time.perf_counter()
@@ -3426,6 +4129,13 @@ def main() -> int:
                     help="run phases 1 and 2, then only phase 17 (the "
                          "dispatch defaults' sweep: lookahead, ratio "
                          "ladder, bounce drain, the pump's lookahead)")
+    ap.add_argument("--first-blocks-only", action="store_true",
+                    help="run phases 1 and 2, then only phase 18 (the "
+                         "first blocks after warmup) with "
+                         f"{FIRST_ENGINES_FULL} engines a setting")
+    ap.add_argument("--switch-ms", type=float, default=None,
+                    help="set the interpreter's switch interval to this "
+                         "many ms before phase 1 (the pump sets 1)")
     ap.add_argument("--soak-seconds", type=float, default=20.0,
                     help="length of phase 14's pump soak")
     ap.add_argument("--soak-event-seconds", type=float, default=5.0,
@@ -3436,6 +4146,8 @@ def main() -> int:
               "False); this script runs only on the GPU", file=sys.stderr)
         return 2
     device = "cuda"
+    if opts.switch_ms is not None:
+        sys.setswitchinterval(opts.switch_ms / 1e3)
     t_start = time.perf_counter()
     with _phase("1 environment"):
         card = phase_environment()
@@ -3467,6 +4179,13 @@ def main() -> int:
         with _phase("17 policy"):
             policy = phase_policy(device, card)
         print(f"policy: {json.dumps(policy)}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
+    if opts.first_blocks_only:
+        with _phase("18 first blocks"):
+            first = phase_first_blocks(device, card, FIRST_ENGINES_FULL)
+        print(f"first blocks: {json.dumps(first)}")
         print(f"total {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
@@ -3547,11 +4266,14 @@ def main() -> int:
     with _phase("16 graphs"):
         graphs = phase_graphs(device, card)
     launches = add_launches(launches, graphs["session"]["launches"])
+    with _phase("18 first blocks"):
+        first = phase_first_blocks(device, card, FIRST_ENGINES)
     print(f"timing: {json.dumps(timing)}")
     print(f"stretch: {json.dumps(stretch)}")
     print(f"mesh timing: {json.dumps(mesh_timing)}")
     print(f"bench: {json.dumps(bench_line)}")
     print(f"graphs: {json.dumps(graphs)}")
+    print(f"first blocks: {json.dumps(first)}")
     print(f"launches on the main path (phases 4, 6, 7, 8, 13, 14, 15, 16): "
           f"{json.dumps(launches)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")

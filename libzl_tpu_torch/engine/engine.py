@@ -1448,6 +1448,9 @@ class AudioEngine:
                     for dev in self.mesh.distinct()
                 }
                 if self._graphs is not None:
+                    # recaptured and warm-replayed on this thread only: a
+                    # warm on the dispatch thread would hold the GIL
+                    # against the blocks that follow (PERF.md §5)
                     self._graphs.rebind(self._device_sound_data,
                                         self._recapture)
             self._bank_version_on_device = self.bank.version
@@ -1504,16 +1507,23 @@ class AudioEngine:
         return path
 
     def warmup(self) -> int:
-        """Build the CUDA kernels (the lane mixdown on every card render,
-        the windows fetch too), then capture a render graph — from the
-        current pool state, without advancing it — for every (bucket, rung,
-        kind) the session can dispatch, exactly the reference's work list:
-        per-block renders (top rung only in a lookahead engine), horizons at
-        each bucket's allowed rungs, and the full-pool gather fallback of a
-        windows engine. A graph already captured is replayed instead; with
-        render_graphs "off" each item renders once. A lookahead engine also
-        starts both spec workers and renders the last item on the dispatch
-        thread, so that thread's CUDA context exists before the session. Ends in one real device->host transfer. Returns
+        """Pay every cold start at boot, never inside the realtime pump (the
+        reference's contract). Build the CUDA kernels (the lane mixdown on
+        every card render, the windows fetch too), then capture a render
+        graph — from the current pool state, without advancing it — for
+        every (bucket, rung, kind) the session can dispatch, exactly the
+        reference's work list: per-block renders (top rung only in a
+        lookahead engine), horizons at each bucket's allowed rungs, and the
+        full-pool gather fallback of a windows engine. A graph already
+        captured is replayed instead; with render_graphs "off" each item
+        renders once. Then every graph is replayed from both staging slots
+        on this thread (RenderGraphs.warm: its first launch, clone and
+        copies), and a lookahead engine starts both spec workers and
+        replays the horizon graphs on the dispatch thread too (without
+        graphs: renders the last item there), so that thread's CUDA context
+        exists before the session. The native host core's first
+        voice_update runs from the pool's state, which is then put back
+        (_warm_host_core). Ends in one real device->host transfer. Returns
         the number of items (also `warmed_graphs`, in stats(): with graphs,
         each is one graph held)."""
         if self.device.type == "cuda":
@@ -1564,12 +1574,37 @@ class AudioEngine:
                 work.append((V, None, "horizon"))
         for w in work:
             out = warm_one(*w)
+        g = self._graphs
+        if g is not None:
+            g.warm()
         if H:
             self._spec_sim_executor().submit(lambda: None).result()
-            out = self._spec_executor().submit(warm_one, *work[-1]).result()
+            if g is None:
+                out = self._spec_executor().submit(warm_one,
+                                                   *work[-1]).result()
+            else:
+                self._spec_executor().submit(
+                    g.warm, [k for k in g.keys()
+                             if k.kind == "horizon"]).result()
+        if self.use_native_host:
+            self._warm_host_core()
         out.master.cpu()
         self.warmed_graphs = len(work)
         return len(work)
+
+    def _warm_host_core(self) -> None:
+        """The native host core's first voice_update, on the engine's own
+        pool and lane buffer (its pointer cache, hostcore._build_state, then
+        holds the session's first blocks' arguments), from the pool's
+        current state, which is put back."""
+        snap = self.pool.save_state()
+        _hostcore.voice_update(
+            self.pool, lane_enabled=self.lane_enabled,
+            block_start_sample=float(self.clock.sample_position),
+            tick_anchor_sample=self.clock.anchor_sample,
+            tick_anchor=self.clock.anchor_tick,
+            samples_per_tick=self.clock.samples_per_tick)
+        self.pool.restore_state(snap)
 
     SLO_WORST_KEEP = 16
 
@@ -1622,6 +1657,10 @@ class AudioEngine:
             # cards (sharding.segments)
             "graph_segments": 0 if g is None else len(g.plan),
             "graph_replays": 0 if g is None else g.replays,
+            # replays off the books of graph_replays, each graph once from
+            # each staging slot: at warmup on each thread that replays it in
+            # realtime, after a recapture on the thread that grew the bank
+            "graph_warm_replays": 0 if g is None else g.warm_replays,
             "late_captures": late_captures,
             "graph_recaptures": 0 if g is None else g.recaptures,
             # renders whose bank was replaced while they waited (run once

@@ -48,11 +48,21 @@ each render shape is captured once and replayed.
   of the flat outputs, views of it. Outputs are clones, so a bounce drain
   holding 32 blocks' outputs, or a horizon emitted while the next renders,
   stays intact.
+- Warm replays (`warm`): the engine's warmup replays every graph it
+  captured twice on each thread that replays it in realtime, once from each
+  staging slot, on the program it last staged (`warm=True`: not counted in
+  `replays`), holding every replay's outputs until the last. A graph's
+  first launch uploads it, and the clones reserve the allocator's blocks
+  that the realtime path's outputs then reuse: both are paid at boot, not
+  by the first blocks that meet the graph. `rebind` warm-replays what it
+  recaptures on the calling thread.
 - Launch counts: a kernel wrapper called under capture tallies its launch
   (ops/launch_tally.py) instead of counting it, and every replay adds the
   key's tally (every segment's), so each kernel's count still says how
   often it ran: the voice kernels and the mixdown k a render (k shards),
-  the finish kernel once.
+  the finish kernel once. Launches that no dispatch of the engine made
+  (warm replays, and the warm-up render of each graph `rebind` captures
+  again) are also summed, by kernel, in `warm_launches`.
 - On the CPU the same keys, segments, static buffers, staging, copies,
   clone and views run with `_PlainGraph`, a graph's plain version: its
   replay re-runs the recorded step on the static buffers. There one
@@ -62,6 +72,7 @@ each render shape is captured once and replayed.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import threading
@@ -241,6 +252,8 @@ class _Entry:
         self.launches = {}
         self.bytes = 0
         self.dead = False
+        # the threads (by name) that warm-replayed this graph
+        self.warmed = set()
 
     def stage(self, prog: np.ndarray) -> float:
         """Every segment's rows staged (_Segment.stage); returns the seconds
@@ -286,6 +299,9 @@ class RenderGraphs:
         self.captures = 0
         self.recaptures = 0
         self.replays = 0
+        self.warm_replays = 0
+        # launches no engine dispatch made, by kernel (module docstring)
+        self.warm_launches = collections.Counter()
         self.stale = 0
         self.capture_seconds = 0.0
         self.bytes = 0
@@ -295,6 +311,31 @@ class RenderGraphs:
 
     def keys(self) -> list:
         return list(self._entries)
+
+    def warm(self, keys=None) -> int:
+        """Replay each graph of `keys` (default: every one) on the calling
+        thread twice, once from each staging slot, on the program it last
+        staged: the same program staged again, counted in `warm_replays`,
+        not `replays`. Every replay's outputs are held until the last
+        returns, so the caching allocator keeps a block for each: the
+        realtime path holds several at once (a block and the one before
+        it, a horizon being emitted and the chain's next ones). Marks each
+        entry warmed on this thread. Returns the replays."""
+        held = []
+        for key in self.keys() if keys is None else keys:
+            entry = self._entries.get(key)
+            if entry is None:
+                continue
+            with entry.lock:
+                if entry.dead:
+                    continue
+                prog = entry.last_program()
+                for _ in entry.segments[0].staging:
+                    held.append(self._replay(entry, prog, warm=True))
+                entry.warmed.add(threading.current_thread().name)
+        with self._stats_lock:
+            self.warm_replays += len(held)
+        return len(held)
 
     def render(self, key: GraphKey, fn, prog: np.ndarray, bound,
                warm: bool = False, profiler=None) -> tuple:
@@ -360,8 +401,10 @@ class RenderGraphs:
                     seg.done.record()
         t3 = time.perf_counter()
         self._count(entry)
-        if not warm:
-            with self._stats_lock:
+        with self._stats_lock:
+            if warm:
+                self.warm_launches.update(entry.launches)
+            else:
                 self.replays += 1
         out = unflatten(flat, entry.layout, entry.key.kind == "horizon")
         if profiler is not None:
@@ -511,8 +554,9 @@ class RenderGraphs:
         """The graphs' inputs are now `bound` (the engine's new bank):
         every graph captured on the old ones is dropped, after the devices
         finished their replays, and captured again through `recapture(key,
-        program columns) -> (new key, fn)` on its last program. Returns the
-        number recaptured."""
+        program columns) -> (new key, fn)` on its last program, then
+        warm-replayed on the calling thread (warm). Returns the number
+        recaptured."""
         with self._capture_lock:
             old = list(self._entries.values())
             self._entries = {}
@@ -536,6 +580,10 @@ class RenderGraphs:
             for entry in old:
                 key, fn = recapture(entry.key, entry.shape[1])
                 self._capture(key, fn, entry.last_program())
+                # its warm-up render launched what the graph holds
+                with self._stats_lock:
+                    self.warm_launches.update(self._entries[key].launches)
             with self._stats_lock:
                 self.recaptures += len(old)
-            return len(old)
+        self.warm()
+        return len(old)
