@@ -113,13 +113,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    failed speculative build; blocks rendered against block periods,
    phase_stats, SLO misses per kind and the per-block copy wait printed;
    every deadline miss printed with its kind, overrun and cause (a
-   BlockTracer on the engine from before the pump starts, miss_cause:
-   a recapture after the bank grew, a late capture, a collection, a
-   graph's first realtime replay, the commands applied, host_program, a
-   dispatch part, horizon_build / adopt_wait / emit (each "stalled: GIL
-   or scheduler" at 10x its median), or the time outside every span: a
-   deferred clip render swapped in, the bank's upload, else GIL or
-   scheduler), every miss named;
+   BlockTracer on the engine from before the pump starts, reading the
+   program's span record; miss_cause: a recapture after the bank grew, a
+   late capture, a collection, a graph's first realtime replay, the
+   commands (the tick walk and its commands, the MIDI fabric),
+   host_program, a dispatch part, horizon_build / adopt_wait / emit (each
+   "stalled: GIL or scheduler" at 10x its median), or the time outside
+   every span: a deferred clip render swapped in, the bank's upload, else
+   GIL or scheduler), every miss named;
    the kernels' launches, counted from a drained engine held at the
    runtime lock, equal its windows dispatches and renders;
 9. shim         — the port's libzl.so (native/libzl_shim.cpp built over the
@@ -3091,32 +3092,37 @@ def phase_bench(card: str) -> tuple:
 
 # ------------------------------- deadline misses, named (phases 8, 17, 18)
 
-# the engine's top-level spans of a block, on the thread that runs it,
-# and the time its commands took (BlockTracer's)
+# the engine's spans of a block under process_block, on the thread that
+# runs it (the program's record, utils/profiling)
 TOP_SPANS = ("commands", "host_program", "dispatch", "horizon_build",
              "adopt_wait", "emit")
 
 
 class BlockTracer:
-    """Per-block records of one engine, taken from outside it: its
-    instance's process_block, profiler, _note_slo_miss, command
-    application and render graphs' _replay and warm are wrapped, and a
-    gc.callbacks entry times Python's collections. A record holds the
-    block's number and ms, its spans on the block's thread (TOP_SPANS and
-    graphs.DISPATCH_SPANS, summed, ms), the collections that ran while it
-    did ([generation, ms, on the block's thread]), the commands it applied
-    and their ms (span "commands"), its first realtime replays of a graph
-    on that thread, its late captures and recaptures, the graphs' warm
-    replays on its thread (span "warm", inside another span: a rebind's),
-    the deferred clip renders waiting at its start, whether the bank was uploaded, and, with
-    `memory`, the caching allocator's segment.all.allocated and
-    num_alloc_retries before and after. A missed block's record also holds
-    its kind, overrun and cause (miss_cause). Keeps every missed block
-    (`misses`) and the first `keep` blocks (`blocks`). `close()` takes
-    every wrapper off."""
+    """Per-block records of one engine, read from the program's span record
+    (libzl_tpu_torch.utils.profiling, recording from here on if it was
+    not): a block's spans on its thread (process_block and what it holds,
+    summed by name, ms: TOP_SPANS, lookahead, graphs.DISPATCH_SPANS) and
+    the collections that ran while it did ([generation, ms, on the block's
+    thread]). What the record does not hold is taken from outside: the
+    engine's process_block and _note_slo_miss and its render graphs'
+    _replay and warm are wrapped for the block's first realtime replays of
+    a graph on its thread, the graphs' warm replays on its thread (span
+    "warm", inside another span: a rebind's), its late captures and
+    recaptures, the deferred clip renders waiting at its start, whether the
+    bank was uploaded, and, with `memory`, the caching allocator's
+    segment.all.allocated and num_alloc_retries before and after. A missed
+    block's record also holds its kind, overrun and cause (miss_cause).
+    Keeps every missed block (`misses`) and the first `keep` blocks
+    (`blocks`); `collections` holds every collection while installed.
+    `close()` takes every wrapper off and stops a recording it started."""
+
+    CAPACITY = 1 << 20
 
     def __init__(self, engine, keep: int = 0, memory: bool = False):
         import weakref
+
+        from libzl_tpu_torch.utils import profiling
 
         self.engine = engine
         self.keep = keep
@@ -3127,9 +3133,13 @@ class BlockTracer:
         self.history = {}           # part -> its ms in each block before
         self._cur = None
         self._thread = None
-        self._gc_t0 = 0.0
+        self._label = None
         self._seen = weakref.WeakKeyDictionary()   # entry -> {thread}
-        self._prof = None
+        self._profiling = profiling
+        self._started = not profiling.recording()
+        if self._started:
+            profiling.start_recording(self.CAPACITY)
+        self._since = profiling.mark()
         tracer = self
         block = engine.process_block
         note = engine._note_slo_miss
@@ -3151,8 +3161,6 @@ class BlockTracer:
 
         engine.process_block = process_block
         engine._note_slo_miss = note_slo_miss
-        for name in ("_apply_clip_command", "_apply_timer_command"):
-            setattr(engine, name, self._timed_command(getattr(engine, name)))
         g = engine._graphs
         if g is not None:
             replay = g._replay
@@ -3184,80 +3192,15 @@ class BlockTracer:
 
             if warm is not None:
                 g.warm = traced_warm
-        gc.callbacks.append(self._gc)
-
-    def _timed_command(self, apply):
-        """`apply` (a command's application) timed into the block's
-        "commands" span and counted, the outermost call only (a timer
-        command applies clip commands)."""
-        tracer = self
-
-        def timed(*args, **kw):
-            rec = tracer._cur
-            if (rec is None or threading.get_ident() != tracer._thread
-                    or rec["in_command"]):
-                return apply(*args, **kw)
-            rec["in_command"] = True
-            t0 = time.perf_counter()
-            try:
-                return apply(*args, **kw)
-            finally:
-                rec["in_command"] = False
-                rec["commands"] += 1
-                rec["spans"]["commands"] = (rec["spans"].get("commands", 0.0)
-                                            + (time.perf_counter() - t0)
-                                            * 1e3)
-
-        return timed
 
     def close(self) -> None:
-        for name in ("process_block", "_note_slo_miss",
-                     "_apply_clip_command", "_apply_timer_command"):
+        for name in ("process_block", "_note_slo_miss"):
             self.engine.__dict__.pop(name, None)
         if self.engine._graphs is not None:
             self.engine._graphs.__dict__.pop("_replay", None)
             self.engine._graphs.__dict__.pop("warm", None)
-        if self._gc in gc.callbacks:
-            gc.callbacks.remove(self._gc)
-
-    def _gc(self, phase: str, info: dict) -> None:
-        if phase == "start":
-            self._gc_t0 = time.perf_counter()
-            return
-        ms = (time.perf_counter() - self._gc_t0) * 1e3
-        mine = threading.get_ident() == self._thread
-        self.collections.append([info["generation"], ms, mine])
-        rec = self._cur
-        if rec is not None:
-            rec["gc"].append([info["generation"], ms, mine])
-
-    def _wrap_profiler(self) -> None:
-        """The engine's current profiler (a round may replace it) records
-        into the block's spans too, from the block's thread only."""
-        prof = self._prof = self.engine.profiler
-        span, record = prof.span, prof.record
-        tracer = self
-
-        def add(name, seconds):
-            rec = tracer._cur
-            if rec is not None and threading.get_ident() == tracer._thread:
-                rec["spans"][name] = (rec["spans"].get(name, 0.0)
-                                      + seconds * 1e3)
-
-        @contextlib.contextmanager
-        def traced_span(name):
-            t0 = time.perf_counter()
-            try:
-                with span(name):
-                    yield
-            finally:
-                add(name, time.perf_counter() - t0)
-
-        def traced_record(name, seconds):
-            add(name, seconds)
-            record(name, seconds)
-
-        prof.span, prof.record = traced_span, traced_record
+        if self._started:
+            self._profiling.stop_recording()
 
     def _graph_counts(self) -> tuple:
         g = self.engine._graphs
@@ -3271,27 +3214,55 @@ class BlockTracer:
 
     def _begin(self) -> dict:
         e = self.engine
-        if e.profiler is not self._prof:
-            self._wrap_profiler()
+        if not self._profiling.recording():
+            # another tracer's close() stopped the record
+            self._profiling.start_recording(self.CAPACITY)
+            self._started, self._since = True, None
         rec = dict(block=e.total_blocks + 1, spans={}, gc=[],
-                   commands=0, in_command=False,
                    first_replays=0, pending=len(e._pending_renders),
                    bank=e._bank_version_on_device, miss=None,
                    counts=self._graph_counts(),
                    mem=self._mem() if self.memory else None)
         self._thread = threading.get_ident()
+        self._label = self._profiling.thread_label()
         self._cur = rec
         return rec
+
+    def _read(self, rec: dict) -> None:
+        """The block's spans and the collections, from the record."""
+        profiling = self._profiling
+        got = profiling.export(self._since)
+        self._since = got["next"]
+        if got["dropped"] and self._started:
+            # the record is full: start it afresh from the next block
+            profiling.start_recording(self.CAPACITY)
+            self._since = None
+        mine = [s for s in got["spans"] if s["block"] == rec["block"]
+                and s["thread"] == self._label and s["name"] != "gc"]
+        for s in mine:
+            rec["spans"][s["name"]] = (rec["spans"].get(s["name"], 0.0)
+                                       + (s["end_ns"] - s["start_ns"]) / 1e6)
+        block = [s for s in mine if s["name"] == "process_block"]
+        a = block[0]["start_ns"] if block else 0
+        b = block[0]["end_ns"] if block else 0
+        for s in got["spans"]:
+            if s["name"] != "gc":
+                continue
+            run = [s["generation"], (s["end_ns"] - s["start_ns"]) / 1e6,
+                   s["thread"] == self._label]
+            self.collections.append(run)
+            if s["start_ns"] < b and s["end_ns"] > a:
+                rec["gc"].append(run)
 
     def _end(self, rec: dict) -> None:
         self._cur = None
         e = self.engine
+        self._read(rec)
         late, recaptures = self._graph_counts()
         rec["late"] = late - rec["counts"][0]
         rec["recaptures"] = recaptures - rec["counts"][1]
         rec["bank_upload"] = rec.pop("bank") != e._bank_version_on_device
         rec["ms"] = rec["spans"].get("process_block", 0.0)
-        del rec["in_command"]
         if self.memory:
             rec["mem"] = (rec["mem"], self._mem())
         parts = block_parts(rec)
@@ -3333,7 +3304,7 @@ def miss_cause(rec: dict, parts: dict, history: dict) -> str:
     thread (which held the GIL); a graph's first realtime replay on this
     thread whose staging, replay and clone took half the overrun; then
     the largest of the block's top-level parts (`parts`, block_parts): the
-    commands applied, a dispatch (named by its largest part),
+    commands, a dispatch (named by its largest part),
     host_program, horizon_build, adopt_wait, emit, or the time outside
     every span (deferred clip renders swapped in, the bank's upload after
     a clip load, else GIL or scheduler). A part at STALL_RATIO times its
@@ -3389,9 +3360,8 @@ def miss_line(rec: dict) -> str:
                     for gen, ms, mine in rec["gc"])
     return (f"block {rec['block']} {m['kind']} {rec['ms']:.3f} ms, over by "
             f"{m['overrun_ms']:.3f} ms: {m['cause']} [spans {spans or 'none'}"
-            f"; gc {gcs or 'none'}; commands {rec['commands']}, first "
-            f"replays {rec['first_replays']}, deferred renders "
-            f"{rec['pending']}]")
+            f"; gc {gcs or 'none'}; first replays {rec['first_replays']}, "
+            f"deferred renders {rec['pending']}]")
 
 
 def print_misses(card: str, label: str, misses: list) -> dict:

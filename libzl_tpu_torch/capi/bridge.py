@@ -215,11 +215,10 @@ class EngineRuntime:
         self._cb_ticks = deque()  # ticks awaiting out-of-lock callback fan
         self.engine.timer_callbacks.append(self._fan_timer_callbacks)
         self._lock = threading.RLock()
-        # pump phases (render, copy_wait, sink, session, sleep, flush_*):
-        # cumulative seconds and counts (phase_stats) and each phase's
-        # recent samples (profiler.summary(): p50/p90/p99/max)
-        self._phase_s: dict = {}
-        self._phase_n: dict = {}
+        # the runtime's spans: a block's step (stage, copy_wait, sink,
+        # session, timer_callbacks; the pump's render and sleep) and the
+        # bounce drain's flush_*: totals since boot (phase_stats) and each
+        # span's recent samples (profiler.summary(): p50/p90/p99/max)
         self.profiler = BlockProfiler()
 
     def run_locked(self, fn):
@@ -231,16 +230,19 @@ class EngineRuntime:
             return fn()
 
     def _phase(self, name: str, dt: float) -> None:
-        self._phase_s[name] = self._phase_s.get(name, 0.0) + dt
-        self._phase_n[name] = self._phase_n.get(name, 0) + 1
         self.profiler.record(name, dt)
 
     def phase_stats(self) -> dict:
-        """Cumulative pump phase times (ms) and counts since boot."""
+        """Cumulative times (ms) and counts of the runtime's spans since
+        boot and of its engine's since its profiler was made (the engine's
+        process_block and what it holds, the speculative workers'; no name
+        is both)."""
+        totals = self.engine.profiler.totals()
+        totals.update(self.profiler.totals())
         out = {}
-        for k in sorted(self._phase_s):
-            out[k + "_ms"] = round(self._phase_s[k] * 1e3, 1)
-            out[k + "_n"] = self._phase_n[k]
+        for k, t in sorted(totals.items()):
+            out[k + "_ms"] = round(t["total_s"] * 1e3, 1)
+            out[k + "_n"] = t["count"]
         return out
 
     # ------------------------------------------------------------- pumping
@@ -267,7 +269,8 @@ class EngineRuntime:
         except ValueError:
             pass
         self._running = True
-        self._pump = threading.Thread(target=self._run, daemon=True)
+        self._pump = threading.Thread(target=self._run, daemon=True,
+                                      name="libzl-pump")
         self._pump.start()
 
     def stop_pump(self) -> None:
@@ -350,16 +353,17 @@ class EngineRuntime:
         drain fold into the next cadence block's meters (meters only; the
         audio is unaffected)."""
         engine = self.engine
-        outs = res.outputs
-        full = engine.levels.is_recording
-        parts = list(outs) if full else [outs.master]
-        plan = None
-        if block_no % engine._levels_every == 0:
-            plan = engine.session_fetch_plan(res)
-            parts += plan[0]
-        else:
-            engine.accumulate_peaks(res)
-        return _Staged(_HostCopy(parts, engine.device), plan, full)
+        with self.profiler.span("stage", block=block_no):
+            outs = res.outputs
+            full = engine.levels.is_recording
+            parts = list(outs) if full else [outs.master]
+            plan = None
+            if block_no % engine._levels_every == 0:
+                plan = engine.session_fetch_plan(res)
+                parts += plan[0]
+            else:
+                engine.accumulate_peaks(res)
+            return _Staged(_HostCopy(parts, engine.device), plan, full)
 
     def _consume(self, block_no: int, res,
                  staged: Optional[_Staged] = None) -> None:
@@ -389,71 +393,67 @@ class EngineRuntime:
         if staged is None:
             with self._lock:
                 staged = self._stage_copy(block_no, res)
-        t0 = time.perf_counter()
-        flat = staged.copy.wait()
-        self._phase("copy_wait", time.perf_counter() - t0)
+        span = self.profiler.span
+        with span("copy_wait", block=block_no):
+            flat = staged.copy.wait()
         B = engine.block_frames
         outputs = None
-        off = B * 2
-        if staged.outputs:
-            outputs, off = _split_outputs(res.outputs, flat)
-        fetched = (staged.plan[1](flat, off) if staged.plan is not None
-                   else None)
+        fetched = None
+        if staged.outputs or staged.plan is not None:
+            with span("unpack", block=block_no):
+                off = B * 2
+                if staged.outputs:
+                    outputs, off = _split_outputs(res.outputs, flat)
+                if staged.plan is not None:
+                    fetched = staged.plan[1](flat, off)
         sink = self.sink
         if sink is not None:
-            t0 = time.perf_counter()
-            sink.write(flat[:B * 2].reshape(B, 2))
-            self._phase("sink", time.perf_counter() - t0)
+            with span("sink", block=block_no):
+                sink.write(flat[:B * 2].reshape(B, 2))
         source = self.source
         capture = source.read(B) if source is not None else None
-        t0 = time.perf_counter()
-        with self._lock:
-            if capture is not None:
-                engine.levels.ingest_capture(capture)
-            if engine.levels.is_recording:
-                if outputs is None:
-                    # recording began after the copy started
-                    o = res.outputs
-                    outputs, _ = _split_outputs(
-                        o, _HostCopy(list(o), engine.device).wait())
-                engine.levels.feed_recorders(outputs)
-            if fetched is not None:
-                engine.update_session(res, include_recorders=False,
-                                      fetched=fetched)
-        self._phase("session", time.perf_counter() - t0)
+        with span("session", block=block_no):
+            with self._lock:
+                if capture is not None:
+                    engine.levels.ingest_capture(capture)
+                if engine.levels.is_recording:
+                    if outputs is None:
+                        # recording began after the copy started
+                        o = res.outputs
+                        outputs, _ = _split_outputs(
+                            o, _HostCopy(list(o), engine.device).wait())
+                    engine.levels.feed_recorders(outputs)
+                if fetched is not None:
+                    engine.update_session(res, include_recorders=False,
+                                          fetched=fetched)
 
     def _plan_drain(self, buf) -> dict:
         """Walk drained blocks in order: accumulate_peaks queues skipped
         blocks' maxima so each cadence block's plan folds everything before
         it."""
         engine = self.engine
-        t0 = time.perf_counter()
         plans = {}
-        with self._lock:
+        with self.profiler.span("flush_plan"), self._lock:
             for i, (block_no, res) in enumerate(buf):
                 if block_no % engine._levels_every == 0:
                     plans[i] = engine.session_fetch_plan(res)
                 else:
                     engine.accumulate_peaks(res)
-        self._phase("flush_plan", time.perf_counter() - t0)
         return plans
 
     def _drain_copy(self, buf, plans) -> _HostCopy:
         """Start ONE host copy of the drained blocks' master mixes plus
         every meter-cadence block's session arrays."""
-        t0 = time.perf_counter()
-        parts = [r.outputs.master for _, r in buf]
-        for i in sorted(plans):
-            parts.extend(plans[i][0])
-        copy = _HostCopy(parts, self.engine.device)
-        self._phase("flush_concat", time.perf_counter() - t0)
-        return copy
+        with self.profiler.span("flush_concat"):
+            parts = [r.outputs.master for _, r in buf]
+            for i in sorted(plans):
+                parts.extend(plans[i][0])
+            return _HostCopy(parts, self.engine.device)
 
     def _deliver_pending(self, pending) -> None:
         buf, plans, copy = pending
-        t0 = time.perf_counter()
-        flat = copy.wait()
-        self._phase("flush_sync", time.perf_counter() - t0)
+        with self.profiler.span("flush_sync"):
+            flat = copy.wait()
         self._deliver_drained(buf, plans, flat)
 
     def _complete_pending_drain(self) -> None:
@@ -496,32 +496,37 @@ class EngineRuntime:
                                        self._drain_copy(buf, plans)))
 
     def _deliver_drained(self, buf, plans, flat) -> None:
+        """The drained blocks in order: each one's sink write (span
+        flush_sink), then under the lock the global recorder's feed and,
+        on a meter-cadence block, update_session (span flush_session)."""
         engine = self.engine
         B = engine.block_frames
-        t0 = time.perf_counter()
-        n_master = B * 2
-        big = flat[: n_master * len(buf)].reshape(len(buf) * B, 2)
-        off = n_master * len(buf)
-        fetched = {}
-        for i in sorted(plans):
-            _, unpack, total = plans[i]
-            fetched[i] = unpack(flat, off)
-            off += total
-        sink = self.sink
-        for i, (block_no, res) in enumerate(buf):
-            blk = big[i * B:(i + 1) * B]
-            if sink is not None:
-                sink.write(blk)
-            with self._lock:
-                levels = engine.levels
-                if levels.is_recording and levels.only_global_recording():
-                    # the global recorder's input IS the fetched master —
-                    # feed it from the batch, no extra copy
-                    levels.feed_global_recorder(blk)
-                if i in fetched:
-                    engine.update_session(res, include_recorders=False,
-                                          fetched=fetched[i])
-        self._phase("flush_deliver", time.perf_counter() - t0)
+        span = self.profiler.span
+        with span("flush_deliver"):
+            n_master = B * 2
+            big = flat[: n_master * len(buf)].reshape(len(buf) * B, 2)
+            off = n_master * len(buf)
+            fetched = {}
+            for i in sorted(plans):
+                _, unpack, total = plans[i]
+                fetched[i] = unpack(flat, off)
+                off += total
+            sink = self.sink
+            for i, (block_no, res) in enumerate(buf):
+                blk = big[i * B:(i + 1) * B]
+                if sink is not None:
+                    with span("flush_sink", block=block_no):
+                        sink.write(blk)
+                with self._lock:
+                    levels = engine.levels
+                    if levels.is_recording and levels.only_global_recording():
+                        # the global recorder's input IS the fetched master —
+                        # feed it from the batch, no extra copy
+                        levels.feed_global_recorder(blk)
+                    if i in fetched:
+                        with span("flush_session", block=block_no):
+                            engine.update_session(res, include_recorders=False,
+                                                  fetched=fetched[i])
 
     def step_blocks(self, n: int) -> None:
         """Deterministic pump: render and consume `n` blocks synchronously.
@@ -531,14 +536,18 @@ class EngineRuntime:
         if self._pump is not None:
             raise RuntimeError("step_blocks requires the pump to be stopped")
         engine = self.engine
+        span = self.profiler.span
         with engine._on_device():
             for _ in range(int(n)):
-                with self._lock:
-                    res = engine.process_block()
-                    block_no = engine.total_blocks
-                    staged = self._stage(block_no, res)
-                self._consume(block_no, res, staged)
-                self._fire_timer_callbacks()
+                # a block's root span: the engine's process_block, then the
+                # runtime's delivery of it
+                with span("step", block=engine.total_blocks + 1):
+                    with self._lock:
+                        res = engine.process_block()
+                        block_no = engine.total_blocks
+                        staged = self._stage(block_no, res)
+                    self._consume(block_no, res, staged)
+                    self._fire_timer_callbacks()
             self._flush_drain()
 
     def run_ahead_blocks(self) -> int:
@@ -563,6 +572,7 @@ class EngineRuntime:
 
     def _pump_blocks(self) -> None:
         engine = self.engine
+        span = self.profiler.span
         spb = engine.block_frames / engine.sample_rate
         depth = self.pipeline_depth
         ahead = self.run_ahead_blocks() * spb
@@ -580,24 +590,24 @@ class EngineRuntime:
             if sink is None or not sink.pacing:
                 now = time.monotonic() - start
                 if rendered - now > ahead:
-                    t0 = time.perf_counter()
-                    time.sleep(spb / 2)
-                    self._phase("sleep", time.perf_counter() - t0)
+                    with span("sleep"):
+                        time.sleep(spb / 2)
                     continue
             # per-block exception guard: a bad record-port name or malformed
             # command must not silently kill audio forever. Record, keep
             # pumping; give up only after sustained failure.
             try:
-                t0 = time.perf_counter()
-                with self._lock:
-                    res = engine.process_block()
-                    block_no = engine.total_blocks
-                    inflight.append(
-                        (block_no, res, self._stage(block_no, res)))
-                self._phase("render", time.perf_counter() - t0)
-                while len(inflight) > depth:
-                    self._consume(*inflight.popleft())
-                self._fire_timer_callbacks()  # outside self._lock
+                # a block's root span; the oldest block in flight is
+                # delivered inside it
+                with span("step", block=engine.total_blocks + 1):
+                    with span("render"), self._lock:
+                        res = engine.process_block()
+                        block_no = engine.total_blocks
+                        inflight.append(
+                            (block_no, res, self._stage(block_no, res)))
+                    while len(inflight) > depth:
+                        self._consume(*inflight.popleft())
+                    self._fire_timer_callbacks()  # outside self._lock
                 consecutive_errors = 0
             except Exception as e:  # noqa: BLE001 — the guard IS the point
                 self.pump_error = e
@@ -648,10 +658,17 @@ class EngineRuntime:
         self._cb_ticks.append(int(tick))
 
     def _fire_timer_callbacks(self) -> None:
-        while self._cb_ticks:
-            tick = self._cb_ticks.popleft()
-            for cb in list(self._timer_callbacks):
-                cb(tick)
+        if not self._cb_ticks:
+            return
+        if not self._timer_callbacks:
+            # no client registered: the ticks have nowhere to go
+            self._cb_ticks.clear()
+            return
+        with self.profiler.span("timer_callbacks"):
+            while self._cb_ticks:
+                tick = self._cb_ticks.popleft()
+                for cb in list(self._timer_callbacks):
+                    cb(tick)
 
 
 _runtime: Optional[EngineRuntime] = None

@@ -57,9 +57,11 @@ each render shape is captured once and replayed.
   by the first blocks that meet the graph. `rebind` warm-replays what it
   recaptures on the calling thread.
 - Launch counts: a kernel wrapper called under capture tallies its launch
-  (ops/launch_tally.py) instead of counting it, and every replay adds the
-  key's tally (every segment's), so each kernel's count still says how
-  often it ran: the voice kernels and the mixdown k a render (k shards),
+  (ops/launch_tally.py) instead of counting it; each key's tally (every
+  segment's) is registered with its replays (`launch_tally.Replays`), which
+  a replay counts up, and a kernel's count, read, adds each tally times its
+  replays (a graph `rebind` drops is folded in), so it still says how often
+  the kernel ran: the voice kernels and the mixdown k a render (k shards),
   the finish kernel once. Launches that no dispatch of the engine made
   (warm replays, and the warm-up render of each graph `rebind` captures
   again) are also summed, by kernel, in `warm_launches`.
@@ -88,13 +90,21 @@ from . import render as render_mod
 _FIELDS = len(render_mod.RenderOutputs._fields)
 
 
-# a replay's parts, as BlockProfiler spans: the wait for a staging slot's
-# last copy (event.synchronize()), np.copyto into the slot and the copy to
-# the device, the graphs' replay() (a chain's copies between cards
-# included), clone() of the flat outputs (with the segments' end events),
-# and the launch tally with unflatten's views
+# a replay's parts, as BlockProfiler spans in this order: the wait for a
+# staging slot's last copy (event.synchronize()), np.copyto into the slot
+# and the copy to the device (these two once a segment), the graphs'
+# replay() (a chain's copies between cards included), clone() of the flat
+# outputs (with the segments' end events), and the launch count with
+# unflatten's views
 DISPATCH_SPANS = ("dispatch_slot_wait", "dispatch_stage", "dispatch_replay",
                   "dispatch_clone", "dispatch_unflatten")
+
+_UNTIMED_SPAN = contextlib.nullcontext()
+
+
+def _untimed(name: str):
+    """A span that times nothing: a render given no profiler."""
+    return _UNTIMED_SPAN
 
 
 class GraphKey(NamedTuple):
@@ -210,25 +220,25 @@ class _Segment:
         self.contrib = self.parts = self.peaks = None
         self.fold = self.init = self.mix = None
 
-    def stage(self, prog: np.ndarray) -> float:
+    def stage(self, prog: np.ndarray, span=_untimed) -> None:
         """The segment's rows of the host program into a staging slot, then
         into the static program (non-blocking from pinned memory on CUDA),
-        on the device's current stream after the last replay's end. Returns
-        the seconds spent waiting for the slot's last copy."""
+        on the device's current stream after the last replay's end: the
+        wait for the slot's last copy in span dispatch_slot_wait, the
+        copies in dispatch_stage."""
         if self.done is not None:
             torch.cuda.current_stream().wait_event(self.done)
         self.slot ^= 1
         event = self.copied[self.slot]
-        t0 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        waited = time.perf_counter() - t0
-        np.copyto(self.staging[self.slot].numpy(), prog[self.rows])
-        self.prog.copy_(self.staging[self.slot],
-                        non_blocking=event is not None)
-        if event is not None:
-            event.record()
-        return waited
+        with span("dispatch_slot_wait"):
+            if event is not None:
+                event.synchronize()
+        with span("dispatch_stage"):
+            np.copyto(self.staging[self.slot].numpy(), prog[self.rows])
+            self.prog.copy_(self.staging[self.slot],
+                            non_blocking=event is not None)
+            if event is not None:
+                event.record()
 
     def statics(self) -> list:
         return [self.prog, self.init, *self.staging]
@@ -250,22 +260,20 @@ class _Entry:
         self.flat = None
         self.layout = None
         self.launches = {}
+        self.replayed = launch_tally.Replays(self.launches, self)
         self.bytes = 0
         self.dead = False
         # the threads (by name) that warm-replayed this graph
         self.warmed = set()
 
-    def stage(self, prog: np.ndarray) -> float:
-        """Every segment's rows staged (_Segment.stage); returns the seconds
-        spent waiting for staging slots."""
+    def stage(self, prog: np.ndarray, span=_untimed) -> None:
+        """Every segment's rows staged (_Segment.stage)."""
         if tuple(prog.shape) != self.shape:
             raise ValueError(f"program {tuple(prog.shape)} for a graph of "
                              f"{self.shape}")
-        waited = 0.0
         for seg in self.segments:
             with _on(seg.device):
-                waited += seg.stage(prog)
-        return waited
+                seg.stage(prog, span)
 
     def last_program(self) -> np.ndarray:
         return np.concatenate([seg.staging[seg.slot].numpy()
@@ -350,7 +358,7 @@ class RenderGraphs:
         graph (a speculative horizon's, which the engine then discards). A
         `warm` render (the engine's warmup) is left out of `replays`. A
         replay records its parts on `profiler` (a BlockProfiler), when
-        given, under DISPATCH_SPANS. Returns (outputs, captured)."""
+        given, as the spans DISPATCH_SPANS. Returns (outputs, captured)."""
         while True:
             entry = self._entries.get(key)
             if entry is None:
@@ -370,53 +378,42 @@ class RenderGraphs:
 
     def _replay(self, entry: _Entry, prog: np.ndarray, warm: bool,
                 profiler=None):
-        t0 = time.perf_counter()
-        waited = entry.stage(prog)
-        t1 = time.perf_counter()
+        """One replay of `entry` on `prog` (its lock held), its parts timed
+        as the spans DISPATCH_SPANS on `profiler`."""
+        span = _untimed if profiler is None else profiler.span
+        entry.stage(prog, span)
         segs = entry.segments
-        if entry.mix_in is None:
-            with _on(self.device):
+        # one entry into the outputs' device for the replay and the clone:
+        # entering a CUDA device costs tens of µs of host time
+        with _on(self.device):
+            with span("dispatch_replay"):
+                if entry.mix_in is not None:
+                    for seg in segs:
+                        with _on(seg.device):
+                            seg.contrib.replay()
+                    for prev, seg in zip([None] + segs, segs):
+                        with _on(seg.device):
+                            if prev is not None:
+                                seg.init.copy_(prev.mix)
+                            seg.fold.replay()
+                    entry.mix_in.copy_(segs[-1].mix)
+                    for dst, seg in zip(entry.peaks_in, segs):
+                        dst.copy_(seg.peaks)
                 entry.graph.replay()
-                t2 = time.perf_counter()
+            with span("dispatch_clone"):
                 flat = entry.flat.clone()
-        else:
-            for seg in segs:
-                with _on(seg.device):
-                    seg.contrib.replay()
-            for prev, seg in zip([None] + segs, segs):
-                with _on(seg.device):
-                    if prev is not None:
-                        seg.init.copy_(prev.mix)
-                    seg.fold.replay()
-            with _on(self.device):
-                entry.mix_in.copy_(segs[-1].mix)
-                for dst, seg in zip(entry.peaks_in, segs):
-                    dst.copy_(seg.peaks)
-                entry.graph.replay()
-                t2 = time.perf_counter()
-                flat = entry.flat.clone()
-        for seg in segs:
-            if seg.done is not None:
-                with _on(seg.device):
-                    seg.done.record()
-        t3 = time.perf_counter()
-        self._count(entry)
-        with self._stats_lock:
-            if warm:
-                self.warm_launches.update(entry.launches)
-            else:
-                self.replays += 1
-        out = unflatten(flat, entry.layout, entry.key.kind == "horizon")
-        if profiler is not None:
-            for name, s in zip(DISPATCH_SPANS, (
-                    waited, t1 - t0 - waited, t2 - t1, t3 - t2,
-                    time.perf_counter() - t3)):
-                profiler.record(name, s)
-        return out
-
-    @staticmethod
-    def _count(entry: _Entry) -> None:
-        launch_tally.add(entry.launches)
+                for seg in segs:
+                    if seg.done is not None:
+                        with _on(seg.device):
+                            seg.done.record()
+        with span("dispatch_unflatten"):
+            entry.replayed.n += 1
+            with self._stats_lock:
+                if warm:
+                    self.warm_launches.update(entry.launches)
+                else:
+                    self.replays += 1
+            return unflatten(flat, entry.layout, entry.key.kind == "horizon")
 
     def _capture(self, key: GraphKey, fn, prog: np.ndarray):
         """Capture `fn` at `key` (the capture lock held); returns the
@@ -509,9 +506,9 @@ class RenderGraphs:
         entry.flat = torch.cat([t.reshape(-1) for t in flatten(outs)])
         entry.graph = _PlainGraph(lambda: _pack(fn(prog), entry.flat) or [],
                                   [])
-        entry.launches = dict(tally)
+        entry.launches.update(tally)
         # this render is the block's: its launches ran
-        self._count(entry)
+        launch_tally.add(entry.launches)
         return unflatten(entry.flat.clone(), entry.layout,
                          entry.key.kind == "horizon")
 
@@ -563,6 +560,7 @@ class RenderGraphs:
             for entry in old:
                 with entry.lock:
                     entry.dead = True
+                launch_tally.retire(entry.replayed)
             for dev in dict.fromkeys(d for d, _, _ in self.plan):
                 if old and dev.type == "cuda":
                     torch.cuda.synchronize(dev)

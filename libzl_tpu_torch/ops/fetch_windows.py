@@ -176,4 +176,4 @@ def _count_launch() -> None:
     launch_tally.count("fetch_interp")
 
 
-launch_tally.register("fetch_interp", fetch_interp)
+fetch_interp = launch_tally.register("fetch_interp", fetch_interp)

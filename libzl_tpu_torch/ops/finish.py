@@ -139,4 +139,4 @@ def finish(lane_mix, strips_packed) -> tuple:
     return strips[0], strips[1], strips[2], meters[0], meters[1], master_peak
 
 
-launch_tally.register("finish_block", finish)
+finish = launch_tally.register("finish_block", finish)

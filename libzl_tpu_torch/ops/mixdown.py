@@ -151,4 +151,4 @@ def _count_launch() -> None:
     launch_tally.count("lane_mixdown")
 
 
-launch_tally.register("lane_mixdown", lane_mixdown)
+lane_mixdown = launch_tally.register("lane_mixdown", lane_mixdown)

@@ -390,5 +390,5 @@ def voice_post(interp, g, valid, pan, out=None) -> tuple:
     return peak, out
 
 
-launch_tally.register("voice_prep", voice_prep)
-launch_tally.register("voice_post", voice_post)
+voice_prep = launch_tally.register("voice_prep", voice_prep)
+voice_post = launch_tally.register("voice_post", voice_post)

@@ -87,6 +87,34 @@ def test_trace_cpu(tmp_path, capsys):
     assert any(e.get("cat") == "cpu_op" for e in events)
 
 
+def test_trace_holds_the_program_spans(tmp_path):
+    """The CLI's trace holds the engine's spans (utils/profiling's record)
+    on the profiler's clock: each block's process_block with its commands
+    inside it, before the profiler's copy of the last block's master."""
+    src, out = tmp_path / "in.wav", tmp_path / "trace"
+    make_tone(src, seconds=0.2)
+    assert main(["trace", str(src), str(out), "--blocks", "3", "--voices",
+                 "16", "--device", "cpu"]) == 0
+    (path,) = out.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    blocks = [e for e in spans if e["name"] == "process_block"]
+    numbers = [e["args"]["block"] for e in blocks]
+    assert numbers == list(range(numbers[0], numbers[0] + 3))
+    for b in blocks:
+        inner = [e for e in spans if e["name"] == "commands"
+                 and e["args"]["parent"] == b["args"]["id"]]
+        assert len(inner) == 1
+        assert b["ts"] <= inner[0]["ts"] <= inner[0]["ts"] + inner[0][
+            "dur"] <= b["ts"] + b["dur"] + 1e-3
+    # the last block's master is copied to the host after the blocks: the
+    # profiler's op starts after the last span ends, within a second
+    end = blocks[-1]["ts"] + blocks[-1]["dur"]
+    copies = [e["ts"] for e in events if e.get("cat") == "cpu_op"
+              and e["name"] == "aten::to" and e["ts"] >= blocks[0]["ts"]]
+    assert copies and end <= min(copies) <= end + 1e6
+
+
 def test_thumbnail_matches_reference_cli(tmp_path):
     src = tmp_path / "in.wav"
     make_tone(src)
