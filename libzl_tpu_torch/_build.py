@@ -50,6 +50,7 @@ SHIM_SOURCE = CSRC / "libzl_shim_torch.cpp"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_held: Optional[ctypes.PyDLL] = None
 # nvcc's output and wall seconds of the last build in this process (the
 # ptxas register/spill report; both stay empty/0 when a cached .so loads)
 build_log = ""
@@ -166,6 +167,23 @@ def load() -> ctypes.CDLL:
         lib.zl_fetch_interp_stage_cap.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def load_held() -> ctypes.PyDLL:
+    """The kernels' library again, bound with ctypes.PyDLL: its calls keep
+    the interpreter lock (ctypes.CDLL's let go of it). For calls shorter
+    than another thread's turn with the lock: zl_host_copy (capi/bridge.py's
+    staging ring)."""
+    global _held
+    with _lock:
+        if _held is None:
+            lib = ctypes.PyDLL(str(build()))
+            ptr = ctypes.c_void_p
+            # dst, src, bytes, stream, event
+            lib.zl_host_copy.argtypes = [ptr, ptr, ctypes.c_int64, ptr, ptr]
+            lib.zl_host_copy.restype = ctypes.c_int
+            _held = lib
+        return _held
 
 
 def bind_fetch(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -16,8 +16,9 @@ Where it differs from the reference bridge:
   meters, the session update) receives numpy float32, never a tensor. A
   block delivered on its own starts its device->host copy (the master mix;
   the session arrays on meter-cadence blocks; every output while recording)
-  right after process_block returns, non-blocking into pinned memory, and
-  delivery waits on that copy's CUDA event only. A blocking `.cpu()` issued
+  right after process_block returns, non-blocking into a slot of the
+  runtime's staging ring (pinned memory and a CUDA event made once), and
+  delivery waits on that slot's event only. A blocking `.cpu()` issued
   when the block is consumed would wait for every block enqueued after it on
   the in-order stream, which defeats the pipeline.
 - Bounce drain. K drained blocks' master mixes and session arrays go through
@@ -26,7 +27,8 @@ Where it differs from the reference bridge:
   its warmup (`_warm_drain_shapes`) existed to avoid XLA compiles mid
   performance; PyTorch compiles nothing here, so both are gone.
 - Threads. The pump thread and `step_blocks` enter the engine's device (the
-  current CUDA device is per thread).
+  current CUDA device is per thread) where it is not current already; the
+  staging ring relies on it.
 
 The entry points that touch no runtime (clip properties and callbacks,
 dBFromVolume, stopClips, the timer multiplier) and `_set_realtime_priority`
@@ -49,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _build
 from ..constants import BEAT_SUBDIVISIONS, TICKS_PER_BAR
 from ..device import device_from_env
 from ..engine.render import RenderOutputs
@@ -115,6 +118,95 @@ class _HostCopy:
         return self._host.numpy()
 
 
+class _StageRing:
+    """A block's device->host copy without per-block set-up: `slots` pinned
+    host buffers of `capacity` floats, each with a device buffer and a CUDA
+    event made once (on the CPU plain tensors and no event). A block takes
+    the next slot: a master alone (one contiguous part) is copied straight
+    into it; a payload of several parts is gathered by one torch.cat into
+    the slot's device buffer first. On a card the copy and the record of
+    the slot's event are one C call (csrc/host_copy.cu's zl_host_copy) that
+    keeps the interpreter lock: torch's copy_ and Event.record each let go
+    of it, and the speculative workers then hold the realtime thread back.
+    The copy runs on the calling thread's current stream of its current
+    device: step_blocks and the pump have the engine's device current.
+
+    A slot is held from its copy until `wait()` has copied its payload out:
+    the consumers (a sink, DiskRecorder.push, update_session) may keep what
+    they are handed, and the slot is overwritten a few blocks later. A
+    payload larger than a slot, or a slot still held, gets no slot (`copy`
+    returns None; the caller falls back to _HostCopy), counted in
+    `fallbacks`; `blocks` counts the copies the ring made."""
+
+    def __init__(self, device: torch.device, slots: int, capacity: int):
+        cuda = device.type == "cuda"
+        self.capacity = capacity
+        self._host = [torch.empty(capacity, dtype=torch.float32,
+                                  pin_memory=cuda) for _ in range(slots)]
+        self._np = [h.numpy() for h in self._host]
+        self._dev = [torch.empty(capacity, dtype=torch.float32,
+                                 device=device) for _ in range(slots)]
+        self._held = [False] * slots
+        self._next = 0
+        self.blocks = 0
+        self.fallbacks = 0
+        self._events = None
+        if cuda:
+            self._events = [torch.cuda.Event() for _ in range(slots)]
+            for event in self._events:
+                event.record()  # makes it, on the current device
+            self._event_ptrs = [e.cuda_event for e in self._events]
+            self._host_ptrs = [h.data_ptr() for h in self._host]
+            self._index = -1 if device.index is None else device.index
+            self._copy = _build.load_held().zl_host_copy
+
+    def copy(self, parts) -> "Optional[_RingCopy]":
+        """Start the copy of `parts` (float32 tensors, raveled in order)
+        into the next slot; None where it gets none."""
+        i = self._next
+        n = sum(t.numel() for t in parts)
+        if self._held[i] or n > self.capacity:
+            self.fallbacks += 1
+            return None
+        src = parts[0]
+        if not (len(parts) == 1 and src.dtype == torch.float32
+                and src.is_contiguous()):
+            src = self._dev[i][:n]
+            torch.cat([t.reshape(-1) for t in parts], out=src)
+        if self._events is None:
+            self._host[i][:n].copy_(src.reshape(-1))
+        else:
+            code = self._copy(self._host_ptrs[i], src.data_ptr(), 4 * n,
+                              torch._C._cuda_getCurrentRawStream(self._index),
+                              self._event_ptrs[i])
+            if code:
+                _build.check(_build.load(), code, "zl_host_copy")
+        self._held[i] = True
+        self._next = (i + 1) % len(self._held)
+        self.blocks += 1
+        return _RingCopy(self, i, n)
+
+    def _wait(self, i: int, n: int) -> np.ndarray:
+        if self._events is not None:
+            self._events[i].synchronize()
+        flat = self._np[i][:n].copy()
+        self._held[i] = False
+        return flat
+
+
+class _RingCopy:
+    """A staging ring's copy in flight (_HostCopy's interface): `wait()`
+    returns the flat float32 array, a copy the slot no longer backs."""
+
+    __slots__ = ("_ring", "_slot", "_n")
+
+    def __init__(self, ring: _StageRing, slot: int, n: int):
+        self._ring, self._slot, self._n = ring, slot, n
+
+    def wait(self) -> np.ndarray:
+        return self._ring._wait(self._slot, self._n)
+
+
 def _split_outputs(outputs, flat: np.ndarray):
     """RenderOutputs of numpy views into `flat`, which starts with every
     field of `outputs` raveled in field order; returns (outputs, offset of
@@ -131,7 +223,7 @@ def _split_outputs(outputs, flat: np.ndarray):
 class _Staged:
     """A block's host copy, started right after its render was enqueued."""
 
-    copy: _HostCopy
+    copy: "_HostCopy | _RingCopy"
     plan: Optional[tuple]   # session_fetch_plan on meter-cadence blocks
     outputs: bool           # every output field rides the copy (recording)
 
@@ -215,6 +307,17 @@ class EngineRuntime:
         self._cb_ticks = deque()  # ticks awaiting out-of-lock callback fan
         self.engine.timer_callbacks.append(self._fan_timer_callbacks)
         self._lock = threading.RLock()
+        # per-block delivery's host copies: one slot a block in flight
+        # (the pump's depth + 1) and one more; a slot holds every output
+        # (recording) and a meter-cadence block's session arrays
+        zero = self.engine._zero_outputs()
+        meters = zero.lane_peaks.numel() + zero.master_peak.numel()
+        with self.engine._on_device():
+            self._ring = _StageRing(
+                self.engine.device, self.pipeline_depth + 2,
+                sum(t.numel() for t in zero)
+                + self.engine._levels_every * meters
+                + zero.lane_rms.numel() + zero.voice_peaks.numel())
         # the runtime's spans: a block's step (stage, copy_wait, sink,
         # session, timer_callbacks; the pump's render and sleep) and the
         # bounce drain's flush_*: totals since boot (phase_stats) and each
@@ -236,13 +339,17 @@ class EngineRuntime:
         """Cumulative times (ms) and counts of the runtime's spans since
         boot and of its engine's since its profiler was made (the engine's
         process_block and what it holds, the speculative workers'; no name
-        is both)."""
+        is both); and the staging ring's counts since boot:
+        `stage_ring_blocks`, the per-block copies it made, and
+        `stage_ring_fallbacks`, those left to an allocating copy."""
         totals = self.engine.profiler.totals()
         totals.update(self.profiler.totals())
         out = {}
         for k, t in sorted(totals.items()):
             out[k + "_ms"] = round(t["total_s"] * 1e3, 1)
             out[k + "_n"] = t["count"]
+        out["stage_ring_blocks"] = self._ring.blocks
+        out["stage_ring_fallbacks"] = self._ring.fallbacks
         return out
 
     # ------------------------------------------------------------- pumping
@@ -348,7 +455,9 @@ class EngineRuntime:
         """Start one block's host copy: its master mix (every output while
         recording) and, on a meter-cadence block, the session arrays
         (folding the peaks queued since the last one); other blocks queue
-        their peaks. Under the lock, in block order. At a switch from
+        their peaks. Under the lock, in block order, on a thread with the
+        engine's device current (the staging ring's copy; a payload it has
+        no slot for takes an allocating _HostCopy). At a switch from
         drained to per-block delivery, the peaks of blocks still in the
         drain fold into the next cadence block's meters (meters only; the
         audio is unaffected)."""
@@ -363,7 +472,10 @@ class EngineRuntime:
                 parts += plan[0]
             else:
                 engine.accumulate_peaks(res)
-            return _Staged(_HostCopy(parts, engine.device), plan, full)
+            copy = self._ring.copy(parts)
+            if copy is None:
+                copy = _HostCopy(parts, engine.device)
+            return _Staged(copy, plan, full)
 
     def _consume(self, block_no: int, res,
                  staged: Optional[_Staged] = None) -> None:

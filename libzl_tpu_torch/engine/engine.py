@@ -970,8 +970,12 @@ class AudioEngine:
     def _on_device(self):
         """The engine's CUDA device as the calling thread's current device
         (it is per thread: the bridge's drain enters it); a no-op on the
-        CPU. The render enters each shard's device itself (sharding._on)."""
-        if self.device.type == "cuda":
+        CPU and where the thread has it current already (entering costs
+        microseconds of host a call). The render enters each shard's
+        device itself (sharding._on)."""
+        index = self.device.index
+        if (self.device.type == "cuda" and index is not None
+                and torch.cuda.current_device() != index):
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 

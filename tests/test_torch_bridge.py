@@ -402,7 +402,11 @@ def test_phase_stats_and_profile(rt):
     stats = rt.phase_stats()
     assert stats["render_ms"] == 3.0 and stats["render_n"] == 2
     assert stats["copy_wait_ms"] == 0.5 and stats["copy_wait_n"] == 1
-    assert all(k.endswith(("_ms", "_n")) for k in stats)
+    # the staging ring's two counts are no span: no "_ms" key a reader of
+    # the spans' totals would take for one
+    ring = {"stage_ring_blocks", "stage_ring_fallbacks"}
+    assert {k: stats[k] for k in ring} == dict.fromkeys(ring, 0)
+    assert all(k.endswith(("_ms", "_n")) for k in set(stats) - ring)
     summary = rt.profiler.summary()
     assert summary["render"]["max_ms"] == pytest.approx(2.1)
     assert summary["copy_wait"]["count"] == 1
@@ -640,6 +644,218 @@ def test_drain_flushes_before_per_block_resume(tmp_path):
     finally:
         rt.set_sink(None)
     assert read_wav(out).num_frames == 4 * rt.engine.block_frames
+
+
+# ---------------------------------------------------------- staging ring
+
+
+class _KeepSink(AudioSink):
+    """A pacing sink (the pump loop runs flat out, on the test's thread)
+    that hands each block to `keep` as it was handed; after `stop_at`
+    blocks it ends the pump loop; `at` maps a block count to an action run
+    inside that block's write."""
+
+    pacing = True
+
+    def __init__(self, rt, keep, stop_at, at=None):
+        self.rt, self.keep, self.stop_at, self.at = rt, keep, stop_at, at or {}
+        self.n = 0
+
+    def write(self, block):
+        self.keep("sink", block)
+        self.n += 1
+        if self.n in self.at:
+            self.at[self.n]()
+        if self.n >= self.stop_at:
+            self.rt._running = False
+
+
+def _keeping(rt):
+    """What the runtime hands its consumers, kept as handed beside a copy
+    made when handed: the sink's blocks (through _KeepSink), every
+    recorder's pushes, update_session's fetched arrays."""
+    kept = {"sink": [], "recorders": [], "session": []}
+
+    def keep(where, arr):
+        kept[where].append((arr, np.array(arr)))
+
+    levels = rt.engine.levels
+    for rec in [levels._global_recorder, levels._ports_recorder,
+                *levels._channel_recorders]:
+        rec.push = lambda block, push=rec.push: (keep("recorders", block),
+                                                 push(block))[1]
+    update = rt.engine.update_session
+
+    def update_session(res, include_recorders=True, fetched=None):
+        for k in sorted(fetched):
+            keep("session", fetched[k])
+        return update(res, include_recorders=include_recorders,
+                      fetched=fetched)
+
+    rt.engine.update_session = update_session
+    return kept, keep
+
+
+def _record_ports(levels, prefix):
+    """A take of three ports and channel 0 (per-block delivery of every
+    output: the ring's payload of several parts)."""
+    def start():
+        levels.set_should_record_ports(True)
+        levels.record_ports = [("lane:2", 0), ("master", 1),
+                               ("strip:1:dry", 0)]
+        levels.set_record_ports_filename_prefix(f"{prefix}p")
+        levels.set_channels_to_record([0])
+        levels.set_channel_filename_prefix(0, f"{prefix}c")
+        levels.start_recording()
+    return start
+
+
+def _allocating(rt):
+    """The runtime without its staging ring: every block's copy an
+    allocating _HostCopy."""
+    rt._ring.copy = lambda parts: None
+
+
+def _assert_same_deliveries(got, want):
+    for where in want:
+        assert len(got[where]) == len(want[where]), where
+        for (_, a), (_, b) in zip(got[where], want[where]):
+            np.testing.assert_array_equal(a, b, err_msg=where)
+
+
+def _assert_unchanged(kept):
+    """Nothing handed on changed after it was handed: a slot reused under
+    a sink or recorder that keeps its arrays would show here."""
+    for where, pairs in kept.items():
+        for i, (arr, copy) in enumerate(pairs):
+            assert np.array_equal(arr, copy), f"{where} #{i} changed"
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["plain", "recording"])
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_stage_ring_delivers_as_the_allocating_copy(tmp_path, depth, record):
+    """The pump loop at pipeline depth 0, 1 and 2 over 216 blocks (12
+    meter-cadence blocks), a take of ports and a channel started and
+    stopped mid-run: the sink, the recorders and update_session receive
+    bit for bit what the allocating copy gives them; every block went
+    through the ring, none fell back; and nothing a consumer kept changed
+    after it was handed (the ring's slots are reused every depth + 2
+    blocks)."""
+    def run(ring):
+        rt = EngineRuntime(SR, 128, 16, device="cpu", pipeline_depth=depth)
+        if not ring:
+            _allocating(rt)
+        kept, keep = _keeping(rt)
+        levels = rt.engine.levels
+        at = ({60: _record_ports(levels, tmp_path / f"{ring}"),
+               150: levels.stop_recording} if record else {})
+        rt.set_sink(_KeepSink(rt, keep, 216, at))
+        _start_ramp(rt, _ramp())
+        rt._running = True
+        rt._pump_blocks()
+        rt.engine.drain_speculation()
+        assert not levels.is_recording
+        return rt, kept
+
+    rt, got = run(True)
+    _, want = run(False)
+    blocks = rt.engine.total_blocks
+    assert blocks == len(got["sink"]) == 216 + depth
+    assert rt.phase_stats()["stage_ring_blocks"] == blocks
+    assert rt.phase_stats()["stage_ring_fallbacks"] == 0
+    assert len(got["session"]) == 4 * (blocks // rt.engine._levels_every)
+    if record:
+        assert len(got["recorders"]) == 90 * 2
+    _assert_same_deliveries(got, want)
+    assert np.abs(np.concatenate([a for a, _ in got["sink"]])).max() > 0.05
+    _assert_unchanged(got)
+
+
+def test_stage_ring_oversized_payload_falls_back(tmp_path):
+    """A take started at a meter-cadence block behind 53 drained blocks:
+    the drained blocks' peaks queue behind that block's fetch, so the next
+    cadence block folds 34 queued peaks, more than a slot holds with every
+    output; that one block takes the allocating copy, is counted in
+    stage_ring_fallbacks, and every consumer receives what the allocating
+    runtime gives it."""
+    def run(ring):
+        rt = EngineRuntime(SR, 128, 16, device="cpu", bounce_drain=64)
+        if not ring:
+            _allocating(rt)
+        kept, keep = _keeping(rt)
+        sink = CaptureSink()
+        rt.set_sink(sink)
+        _start_ramp(rt, _ramp())
+        _pump_by_hand(rt, 53)
+        assert len(rt._drain_buf) == 53
+        assert (rt.engine.total_blocks + 1) % rt.engine._levels_every == 0
+        _record_ports(rt.engine.levels, tmp_path / f"{ring}")()
+        _pump_by_hand(rt, 40)
+        rt.engine.levels.stop_recording()
+        rt.engine.drain_speculation()
+        kept["sink"] = [(b, b) for b in sink.blocks]
+        return rt, kept
+
+    rt, got = run(True)
+    _, want = run(False)
+    assert len(got["sink"]) == 93
+    st = rt.phase_stats()
+    assert (st["stage_ring_blocks"], st["stage_ring_fallbacks"]) == (39, 1)
+    _assert_same_deliveries(got, want)
+    _assert_unchanged(got)
+
+
+@pytest.mark.cuda
+def test_stage_ring_on_card_matches_host_copy():
+    """On the card, the runtime of the live-loops benchmark cell (96
+    voices, B=128, the horizon at H=16, pipeline depth 1) over 320 blocks
+    of step_blocks(1): each block's ring copy (its master; the session
+    arrays on meter-cadence blocks) is bit-equal to an allocating
+    _HostCopy of the same tensors, and no block fell back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ring's pinned slots and events")
+    import sys
+
+    from zlbench import harness, spec
+
+    switch = sys.getswitchinterval()
+    try:
+        s = harness.build(spec.load_cell("live-loops"), 3300000001, "cuda:0")
+    finally:
+        sys.setswitchinterval(switch)
+    rt = s.rt
+    assert (rt.engine.block_frames, rt.engine._lookahead) == (128, 16)
+    ring_copy = rt._ring.copy
+    compared = []
+
+    class Both:
+        def __init__(self, mine, theirs):
+            self.mine, self.theirs = mine, theirs
+
+        def wait(self):
+            got, want = self.mine.wait(), self.theirs.wait()
+            compared.append((got.size, np.array_equal(got, want)))
+            return got
+
+    def both(parts):
+        mine = ring_copy(parts)
+        assert mine is not None, "a block fell back"
+        return Both(mine, bridge._HostCopy(parts, rt.engine.device))
+
+    rt._ring.copy = both
+    before = rt.phase_stats()
+    try:
+        for _ in range(320):
+            rt.step_blocks(1)
+    finally:
+        rt.engine.drain_speculation()
+    after = rt.phase_stats()
+    assert len(compared) == 320
+    assert all(same for _, same in compared)
+    assert sum(n > 256 for n, _ in compared) >= 320 // 18
+    assert after["stage_ring_blocks"] - before["stage_ring_blocks"] == 320
+    assert after["stage_ring_fallbacks"] == 0
+    assert np.abs(s.sink.last[1]).max() > 0
 
 
 # ---------------------------------------------------------- host copies
