@@ -2452,6 +2452,14 @@ def phase_pump(device, wavs: list, card: str) -> dict:
           f"max {waits.get('max_ms', nan):.4f} ms over "
           f"{waits.get('count', 0)} blocks")
     print(f"[{card}] pump phase_stats {json.dumps(r['phase_stats'])}")
+    # .get: a copy of this script run on a parent checkout, whose engine
+    # has neither the counters nor the span
+    ps = r["phase_stats"]
+    print(f"[{card}] pump played notes: " + ", ".join(
+        f"{k} {stats.get(k)}" for k in ("note_ons", "note_offs",
+                                        "starts_dropped", "bucket_changes"))
+        + f"; span notes {ps.get('notes_n', 0)} blocks, "
+        f"{ps.get('notes_ms', 0.0)} ms")
     print(f"[{card}] pump slo_by_kind {json.dumps(stats['slo_by_kind'])}; "
           f"dsp_load {stats['dsp_load']}")
     check(r["error"] is None, f"pump error: {r['error']!r}")

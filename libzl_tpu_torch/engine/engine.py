@@ -566,6 +566,15 @@ class AudioEngine:
         # less emitted is the work speculation threw away
         self.lookahead_slices_rendered = 0
         self.lookahead_slices_emitted = 0
+        # the played notes' path: the note-ons and note-offs of the blocks'
+        # scheduled MIDI, start commands that claimed no voice, and renders
+        # whose rows (the bucket, or the full pool) differ from the last
+        # render's (under _stats_lock: the dispatch thread renders too)
+        self.note_ons = 0
+        self.note_offs = 0
+        self.starts_dropped = 0
+        self.bucket_changes = 0
+        self._last_render_rows = None
 
         self.strips = default_strip_params(render_mod.NUM_STRIPS)
         # GlobalPlayback strip gets its wets zeroed (lib/MidiRouter.cpp:876-880)
@@ -607,10 +616,10 @@ class AudioEngine:
         self.clip_command_sent_callbacks: list[Callable[[ClipCommand], None]] = []
         self.total_blocks = 0
         # per-stage host wall time (utils/profiling): a block is the span
-        # process_block, holding commands, then lookahead (emit,
-        # adopt_wait, horizon_build) or host_program and dispatch (the
-        # graph replay's parts, graphs.DISPATCH_SPANS); the speculative
-        # workers record spec_sim and spec_dispatch on it too
+        # process_block, holding commands (notes, in a note block), then
+        # lookahead (emit, adopt_wait, horizon_build) or host_program and
+        # dispatch (the graph replay's parts, graphs.DISPATCH_SPANS); the
+        # speculative workers record spec_sim and spec_dispatch on it too
         self.profiler = BlockProfiler()
         # deadline accounting: SLO misses per dispatch kind (emit, horizon,
         # event_rebuild, adopt, spec, per_block, idle) against each kind's
@@ -885,9 +894,27 @@ class AudioEngine:
                 clip.set_speed_ratio(cmd.speed_ratio, defer=True)
             if cmd.change_gain_db:
                 clip.set_gain(cmd.gain_db, defer=True)
+        # the pool numbers each voice it starts: a start that leaves the
+        # next number as it was claimed none
+        claimed = self.pool._next_position_id
         self.allocator.handle(cmd, clip, tick, frame_offset)
+        if cmd.start_playback and self.pool._next_position_id == claimed:
+            self.starts_dropped += 1
         for cb in self.clip_command_sent_callbacks:
             cb(cmd)
+
+    def _route_midi(self, midi_out: list) -> None:
+        """A block's MIDI through the fabric: the router (internal, then
+        hardware input), the transport's passthrough, the sampler map (a
+        note to a start or stop command, through the allocator) and the
+        external outputs."""
+        router = self.router
+        router.begin_block()
+        router.route_internal(midi_out)
+        router.route_hardware()
+        self.transport.handle_passthrough(router.passthrough_out)
+        self.sampler_map.handle(router, router.passthrough_out)
+        router.flush_external()
 
     # ------------------------------------------------------------- rendering
 
@@ -954,12 +981,17 @@ class AudioEngine:
     def _fetch_kind(self, fetch: str) -> str:
         return "gather" if self.quirk_gain else fetch.partition(":")[0]
 
-    def _count_render(self, kind: str, blocks: int, dispatch: str) -> None:
+    def _count_render(self, kind: str, blocks: int, dispatch: str,
+                      rows: int) -> None:
         with self._stats_lock:
             self.fetch_dispatches[kind] += blocks
             self.render_dispatches[dispatch] += 1
             if dispatch == "horizon":
                 self.lookahead_slices_rendered += blocks
+            if rows != self._last_render_rows:
+                if self._last_render_rows is not None:
+                    self.bucket_changes += 1
+                self._last_render_rows = rows
 
     def _note_spec_failure(self, exc: BaseException) -> None:
         with self._stats_lock:
@@ -992,7 +1024,7 @@ class AudioEngine:
             fetch, rmax, bucket = "gather", self.max_pitch_ratio, None
         V = self.pool.num_voices
         n = V if bucket is None else min(bucket, V)
-        self._count_render(self._fetch_kind(fetch), 1, "block")
+        self._count_render(self._fetch_kind(fetch), 1, "block", n)
         # ONE host->device buffer per shard and block (its rows of the
         # bucket's prefix of the pool): the program pair fuses into a single
         # int32 matrix (f32 columns bit-cast), uploaded from pinned memory on
@@ -1235,7 +1267,7 @@ class AudioEngine:
 
         def dispatch() -> list:
             outs = self._render("horizon", fetch, rmax, hz, sound, strips)
-            self._count_render(kind, H, "horizon")
+            self._count_render(kind, H, "horizon", hz.shape[0])
             return list(outs)
 
         return dispatch
@@ -1686,13 +1718,15 @@ class AudioEngine:
     def stats(self) -> dict:
         """Runtime health counters: SLO (deadline misses, per dispatch
         kind, the worst misses by overrun), DSP load, speculative-chain
-        failures, the lookahead's slices rendered and emitted, and the
-        event watchdog."""
+        failures, the lookahead's slices rendered and emitted, the played
+        notes' path (note_ons, note_offs, starts_dropped, bucket_changes)
+        and the event watchdog."""
         with self._stats_lock:
             spec_failures = self.spec_failures
             spec_last_failure = self.spec_last_failure
             late_captures = self.late_captures
             slices_rendered = self.lookahead_slices_rendered
+            bucket_changes = self.bucket_changes
         g = self._graphs
         return {
             "blocks": self.total_blocks,
@@ -1733,6 +1767,10 @@ class AudioEngine:
             "spec_last_failure": spec_last_failure,
             "lookahead_slices_rendered": slices_rendered,
             "lookahead_slices_emitted": self.lookahead_slices_emitted,
+            "note_ons": self.note_ons,
+            "note_offs": self.note_offs,
+            "starts_dropped": self.starts_dropped,
+            "bucket_changes": bucket_changes,
             "watchdog_scheduled": self.watchdog.scheduled,
             "watchdog_delivered": self.watchdog.delivered,
             "watchdog_mismatches": self.watchdog.mismatches,
@@ -1741,7 +1779,8 @@ class AudioEngine:
 
     def process_block(self) -> BlockResult:
         """Render one block: drain due ticks, dispatch, advance. One span,
-        process_block: the commands, then the lookahead or the per-block
+        process_block: the commands (the fabric inside `notes` in a block
+        whose MIDI carries a note), then the lookahead or the per-block
         dispatch; its time is the block's SLO and DSP-load observation."""
         prof = self.profiler
         with prof.span("process_block", block=self.total_blocks + 1) as span:
@@ -1828,12 +1867,28 @@ class AudioEngine:
             self.transport.emit_ticks(
                 self.clock.sample_position, self.block_frames, midi_out
             )
-            self.router.begin_block()
-            self.router.route_internal(midi_out)
-            self.router.route_hardware()
-            self.transport.handle_passthrough(self.router.passthrough_out)
-            self.sampler_map.handle(self.router, self.router.passthrough_out)
-            self.router.flush_external()
+            # a note block (its scheduled MIDI carries a note-on or off)
+            # routes inside the span "notes": its window count is the note
+            # blocks, its total their cost
+            ons = offs = 0
+            for _, data in midi_out:
+                # midi.messages' is_note_on / is_note_off, inline: a quiet
+                # block's clock bytes cost one compare each
+                if data and 0x7F < data[0] < 0xA0:
+                    if data[0] < 0x90:
+                        offs += 1
+                    elif len(data) > 2:
+                        if data[2]:
+                            ons += 1
+                        else:
+                            offs += 1
+            if ons or offs:
+                self.note_ons += ons
+                self.note_offs += offs
+                with prof.span("notes"):
+                    self._route_midi(midi_out)
+            else:
+                self._route_midi(midi_out)
             # event watchdog: everything that entered the fabric this
             # block must have reached a terminal (sink append or
             # intentional swallow)
