@@ -58,7 +58,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    fall back to gather;
 5. timing      — per-block engine: superblock realtime factor, live-block
    ms, host program and dispatch ms (and the parts of a graph replay:
-   slot wait, staging, replay, clone, unflatten and tally), a
+   slot wait, staging, output slot and tally, replay), a
    torch.profiler pass per geometry
    (device ms and kernels per block beside those of the render before its
    voice kernels, each kernel's share, device busy share, and the
@@ -176,7 +176,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    banks) replayed on
    the session's real programs, every output field
    bit-equal to the eager render_block_sharded / render_horizon_sharded of
-   the same program; a 384-block default session at B=128 with graphs
+   the same program and to the graph's replay() + clone() (the native
+   replay: every replay of a one-card engine through it, its output slots
+   and fallbacks printed); a 384-block default session at B=128 with graphs
    ("auto") and without ("off") in lockstep, bit-equal every block across a
    clip load, a strips change and a note-off; then, for each path in
    turns (auto, off, off, auto), the superblock realtime factor and
@@ -1968,7 +1970,11 @@ def check_replays(e, progs: dict, label: str) -> int:
     """Every graph of `e` replayed on a real program of the session (its
     first `voices` rows) against the eager render_block_sharded /
     render_horizon_sharded of the same program on the same bank and
-    strips: every output field torch.equal. Returns the graphs checked."""
+    strips, and against the graph's torch replay (`CUDAGraph.replay()`
+    and a clone of the flat outputs) of the same program: every output
+    field torch.equal. On one card every graph replays through the native
+    call (the capture left the CUDA generator as it was). Returns the
+    graphs checked."""
     from libzl_tpu_torch.engine.graphs import flatten
 
     g = e._graphs
@@ -1985,8 +1991,34 @@ def check_replays(e, progs: dict, label: str) -> int:
             err = float((a - b).abs().max())
             check(torch.equal(a, b), f"{label}: replay of {key} differs "
                   f"from the eager render by {err:.3e}")
+        entry = g._entries[key]
+        if len(g.plan) == 1:
+            check(entry.native is not None, f"{label}: {key} replays "
+                  f"through torch: its capture moved the CUDA generator")
+        with entry.lock, torch.cuda.device(g.device):
+            entry.stage(prog)
+            entry.graph.replay()
+            torch_flat = entry.flat.clone()
+            for seg in entry.segments:
+                seg.done.record()
+        got_flat = torch.cat([t.reshape(-1) for t in flatten(got)])
+        check(torch.equal(got_flat, torch_flat), f"{label}: the native "
+              f"replay of {key} differs from replay() + clone() by "
+              f"{float((got_flat - torch_flat).abs().max()):.3e}")
     check(len(keys) > 0, f"{label}: no graph captured")
     return len(keys)
+
+
+def check_native_counts(e, label: str) -> dict:
+    """A one-card engine's replays all went through the native call;
+    returns the output slots' counters."""
+    stats = e.stats()
+    if stats["graph_segments"] == 1:
+        check(stats["native_replays"] == stats["graph_replays"],
+              f"{label}: {stats['native_replays']} native replays of "
+              f"{stats['graph_replays']}")
+    return {k: stats[k] for k in ("graph_replays", "native_replays",
+                                  "out_slots", "out_slot_fallbacks")}
 
 
 def graph_session(device) -> dict:
@@ -2037,9 +2069,10 @@ def graph_session(device) -> dict:
         check(e.stats()["spec_failures"] == 0, f"graph session: speculative "
               f"build failed: {e.stats()['spec_last_failure']}")
     stats = engines[0].stats()
+    native = check_native_counts(engines[0], "graph session")
     return dict(blocks=GRAPH_SESSION_BLOCKS, launches=launches,
                 renders=dict(engines[0].render_dispatches),
-                replays=stats["graph_replays"],
+                native=native, replays=stats["graph_replays"],
                 late_captures=stats["late_captures"],
                 recaptures=stats["graph_recaptures"],
                 stale=stats["graph_stale_renders"],
@@ -2174,14 +2207,20 @@ def phase_graphs(device, card: str) -> dict:
         n = check_replays(e, progs, f"B={B} {bank} bank {name}")
         label = f"{B}_{bank}_{name}"
         res[f"replays_checked_{label}"] = n
+        counts = check_native_counts(e, f"B={B} {bank} bank {name}")
+        res[f"native_{label}"] = counts
         res[f"warmup_{label}"] = warm
         keys = sorted((k.kind, k.voices, k.rmax, k.fetch)
                       for k in e._graphs.keys())
         print(f"[{card}] graphs B={B} {bank} bank, {name} engine "
               f"H={e._lookahead}: {n} graphs (keys "
               f"{keys}), "
-              f"each replay bit-equal to the eager render (max abs "
-              f"error 0); warmup {warm['warmup_s']:.3f} s, capture "
+              f"each replay bit-equal to the eager render and to "
+              f"replay() + clone() (max abs error 0); native replays "
+              f"{counts['native_replays']} of {counts['graph_replays']}, "
+              f"out_slots {counts['out_slots']}, out_slot_fallbacks "
+              f"{counts['out_slot_fallbacks']}; warmup "
+              f"{warm['warmup_s']:.3f} s, capture "
               f"{warm['capture_s']:.3f} s, graphs hold "
               f"{warm['graph_bytes'] / 2**20:.1f} MiB, memory_reserved "
               f"+{warm['reserved_growth'] / 2**20:.1f} MiB "
@@ -2196,7 +2235,8 @@ def phase_graphs(device, card: str) -> dict:
           f"{json.dumps(sess['renders'])} = {sess['replays']} replays + "
           f"{sess['late_captures']} late captures + {sess['stale']} stale "
           f"({sess['recaptures']} recaptures, {sess['adoptions']} "
-          f"adoptions); kernel launches {json.dumps(sess['launches'])} "
+          f"adoptions; native {json.dumps(sess['native'])}); kernel "
+          f"launches {json.dumps(sess['launches'])} "
           f"({time.perf_counter() - t0:.1f} s)")
     runs = {m: [] for m in GRAPH_MODES}
     for mode in GRAPH_MODES:
@@ -3310,7 +3350,7 @@ def miss_cause(rec: dict, parts: dict, history: dict) -> str:
     order: a recapture after the bank grew; a late capture; collections on
     the block's thread for at least half the overrun, then on another
     thread (which held the GIL); a graph's first realtime replay on this
-    thread whose staging, replay and clone took half the overrun; then
+    thread whose staging, output slot and replay took half the overrun; then
     the largest of the block's top-level parts (`parts`, block_parts): the
     commands, a dispatch (named by its largest part),
     host_program, horizon_build, adopt_wait, emit, or the time outside
@@ -3332,8 +3372,8 @@ def miss_cause(rec: dict, parts: dict, history: dict) -> str:
             return (f"collection{where} (generation "
                     f"{max(gen for gen, _ in runs)})")
     first = sum(spans.get(k, 0.0) for k in ("dispatch_stage",
-                                            "dispatch_replay",
-                                            "dispatch_clone"))
+                                            "dispatch_out",
+                                            "dispatch_replay"))
     if rec["first_replays"] and first >= over / 2:
         return "first replay of a key"
     top = {k: parts[k] for k in (*TOP_SPANS, "outside every span")}

@@ -173,15 +173,20 @@ def load_held() -> ctypes.PyDLL:
     """The kernels' library again, bound with ctypes.PyDLL: its calls keep
     the interpreter lock (ctypes.CDLL's let go of it). For calls shorter
     than another thread's turn with the lock: zl_host_copy (capi/bridge.py's
-    staging ring)."""
+    staging ring), zl_graph_replay (engine/graphs.py's replays)."""
     global _held
     with _lock:
         if _held is None:
             lib = ctypes.PyDLL(str(build()))
-            ptr = ctypes.c_void_p
+            ptr, i64 = ctypes.c_void_p, ctypes.c_int64
             # dst, src, bytes, stream, event
-            lib.zl_host_copy.argtypes = [ptr, ptr, ctypes.c_int64, ptr, ptr]
+            lib.zl_host_copy.argtypes = [ptr, ptr, i64, ptr, ptr]
             lib.zl_host_copy.restype = ctypes.c_int
+            # exec, stream, done, prog, staging, prog bytes, copied, dst,
+            # src, out bytes, device
+            lib.zl_graph_replay.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                            ptr, ptr, ptr, i64, ctypes.c_int]
+            lib.zl_graph_replay.restype = ctypes.c_int
             _held = lib
         return _held
 

@@ -1066,10 +1066,16 @@ class AudioEngine:
         the first time it is met (counted in `late_captures` unless `late`
         is False), or, with render_graphs "off", the eager dispatch. A
         RenderOutputs, or a tuple of H for a horizon."""
-        fn = self._render_fn(kind, fetch, rmax, sound, strips, prog.shape[1])
         if self._graphs is None:
-            return fn(prog)
+            return self._render_fn(kind, fetch, rmax, sound, strips,
+                                   prog.shape[1])(prog)
         key = self._graph_key(kind, prog.shape[0], fetch, rmax, sound)
+        # the render itself (a ShardedRender) only where no graph replays
+        out = self._graphs.replay(key, prog, warm=not late,
+                                  profiler=self.profiler)
+        if out is not None:
+            return out
+        fn = self._render_fn(kind, fetch, rmax, sound, strips, prog.shape[1])
         out, captured = self._graphs.render(key, fn, prog, sound,
                                             warm=not late,
                                             profiler=self.profiler)
@@ -1743,6 +1749,14 @@ class AudioEngine:
             # each staging slot: at warmup on each thread that replays it in
             # realtime, after a recapture on the thread that grew the bank
             "graph_warm_replays": 0 if g is None else g.warm_replays,
+            # of graph_replays, those through the native call (a one-card
+            # graph drawing nothing from the CUDA generator: all of them
+            # on one card, none on the CPU or across cards)
+            "native_replays": 0 if g is None else g.native_replays,
+            # output slots made (graphs._OutRing), and replays that found
+            # none free under the ring's cap and cloned their outputs
+            "out_slots": 0 if g is None else g.out_slots,
+            "out_slot_fallbacks": 0 if g is None else g.out_slot_fallbacks,
             "late_captures": late_captures,
             "graph_recaptures": 0 if g is None else g.recaptures,
             # renders whose bank was replaced while they waited (run once

@@ -9,11 +9,11 @@ too (libzl_tpu/parallel/sharding.py), `AudioEngine.warmup` compiles every
 enqueues ~260 small kernels a block and shard (~285 a horizon slice); here
 each render shape is captured once and replayed.
 
-    host program [n, C] int32 ─> pinned staging slot ─copy_─> static program
-                                                              │ replay()
+    host program [n, C] int32 ─> pinned staging slot ─copy──> static program
+                                                              │ launch
     static bank, static strips ───────────────────────────────┤
                                                               v
-                    views of ONE clone <── flat static outputs [all fields]
+      an output slot's ready views <─copy── flat static outputs [all fields]
 
 - `GraphKey` names a shape: kind ("block" or "horizon"), voices rendered
   (the bucket), fetch, rung (max pitch ratio), slices, quirk_gain and the
@@ -44,18 +44,27 @@ each render shape is captured once and replayed.
   that fails raises; nothing falls back to the eager render.
 - Replay, under the key's lock: each segment's rows into a pinned staging
   slot (two, each reused only after its last copy finished), one
-  non-blocking copy into the static program, the replays, one `clone()`
-  of the flat outputs, views of it. Outputs are clones, so a bounce drain
-  holding 32 blocks' outputs, or a horizon emitted while the next renders,
-  stays intact.
+  non-blocking copy into the static program, the replays, one copy of the
+  flat outputs into an output slot (`_OutRing`), whose RenderOutputs (a
+  tuple of H for a horizon) were built once as its views. A slot is
+  written again only when nothing outside the ring refers to it, so a
+  bounce drain holding 128 blocks' outputs, or a horizon emitted while
+  the next renders, stays intact; where none is free the ring grows, and
+  past OUT_RING_BYTES the replay clones the flat outputs instead
+  (`out_slot_fallbacks`). On a card a one-segment entry whose capture left
+  the default CUDA generator as it was replays in one native call with
+  the interpreter lock held (csrc/graph_replay.cu, `_NativeReplay`): the
+  program's copy, the graph's launch and the outputs' copy, with handles
+  read once at capture; a chain, and a graph that draws from the
+  generator, go through torch (`CUDAGraph.replay()`, which advances it).
 - Warm replays (`warm`): the engine's warmup replays every graph it
   captured twice on each thread that replays it in realtime, once from each
   staging slot, on the program it last staged (`warm=True`: not counted in
   `replays`), holding every replay's outputs until the last. A graph's
-  first launch uploads it, and the clones reserve the allocator's blocks
-  that the realtime path's outputs then reuse: both are paid at boot, not
-  by the first blocks that meet the graph. `rebind` warm-replays what it
-  recaptures on the calling thread.
+  first launch uploads it, and the held outputs make the key's first two
+  output slots: both are paid at boot, not by the first blocks that meet
+  the graph. `rebind` warm-replays what it recaptures on the calling
+  thread.
 - Launch counts: a kernel wrapper called under capture tallies its launch
   (ops/launch_tally.py) instead of counting it; each key's tally (every
   segment's) is registered with its replays (`launch_tally.Replays`), which
@@ -66,8 +75,8 @@ each render shape is captured once and replayed.
   (warm replays, and the warm-up render of each graph `rebind` captures
   again) are also summed, by kernel, in `warm_launches`.
 - On the CPU the same keys, segments, static buffers, staging, copies,
-  clone and views run with `_PlainGraph`, a graph's plain version: its
-  replay re-runs the recorded step on the static buffers. There one
+  output slots and views run with `_PlainGraph`, a graph's plain version:
+  its replay re-runs the recorded step on the static buffers. There one
   segment's capture is the block's output and counts its launches (none:
   the plain versions); a chain's is a warm-up render and its steps.
 """
@@ -77,6 +86,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import sys
 import threading
 import time
 from typing import NamedTuple
@@ -91,13 +101,19 @@ _FIELDS = len(render_mod.RenderOutputs._fields)
 
 
 # a replay's parts, as BlockProfiler spans in this order: the wait for a
-# staging slot's last copy (event.synchronize()), np.copyto into the slot
-# and the copy to the device (these two once a segment), the graphs'
-# replay() (a chain's copies between cards included), clone() of the flat
-# outputs (with the segments' end events), and the launch count with
-# unflatten's views
-DISPATCH_SPANS = ("dispatch_slot_wait", "dispatch_stage", "dispatch_replay",
-                  "dispatch_clone", "dispatch_unflatten")
+# staging slot's last copy (event.synchronize()); np.copyto into the slot
+# (on the torch path also the copy to the device: once a segment); the
+# pick of an output slot and the launch tally; the replay: the native
+# call, or the graphs' replay() (a chain's copies between cards included)
+# and the outputs' copy into the slot (a clone and its views where the
+# ring had none), with the segments' end events
+DISPATCH_SPANS = ("dispatch_slot_wait", "dispatch_stage", "dispatch_out",
+                  "dispatch_replay")
+
+# an entry's output slots may hold this many bytes: a bounce drain holds
+# up to 2 x 64 blocks (377 KiB each at B=1024 and 96 voices) and the next
+# block renders meanwhile
+OUT_RING_BYTES = 64 << 20
 
 _UNTIMED_SPAN = contextlib.nullcontext()
 
@@ -197,6 +213,118 @@ class _PlainGraph:
                 out.copy_(t)
 
 
+class _OutSlot:
+    """One output slot: a flat buffer, its RenderOutputs (a tuple of H
+    for a horizon) as views, and what the ring itself holds of them."""
+
+    __slots__ = ("flat", "ptr", "outs", "objs", "storage", "refs", "uses")
+
+
+def _unheld(slot: _OutSlot) -> bool:
+    """Nothing outside the ring refers to `slot`: every object it handed
+    out (the flat buffer, the outputs' tuples and their fields) is back to
+    its reference count at the slot's making, and the buffer's storage to
+    its use count (a view, a slice or a numpy array made from a field
+    holds the storage). The reference counts are read first: a holder
+    that makes a view and then drops its field is seen by one or the
+    other. Holding a field only from C++ (a DLPack capsule) is not seen."""
+    return (sum(map(sys.getrefcount, slot.objs)) == slot.refs
+            and torch._C._storage_Use_Count(slot.storage) == slot.uses)
+
+
+class _OutRing:
+    """An entry's output slots, made on demand, each written again only
+    when `_unheld`. `take()` returns the first such slot from the one
+    after the last taken, else a new one, else None once the slots hold
+    OUT_RING_BYTES (the caller clones: out_slot_fallbacks). Under the
+    entry's lock."""
+
+    def __init__(self, layout, horizon: bool, device: torch.device):
+        self.layout, self.horizon, self.device = layout, horizon, device
+        self.numel = sum(n for _, n in layout)
+        self.cap = max(OUT_RING_BYTES // (4 * self.numel), 1)
+        self.slots = []
+        self._next = 0
+
+    def take(self):
+        slots = self.slots
+        n = len(slots)
+        i = self._next
+        for _ in range(n):
+            if i >= n:
+                i = 0
+            if _unheld(slots[i]):
+                self._next = i + 1
+                return slots[i]
+            i += 1
+        if n >= self.cap:
+            return None
+        # the new slot goes where the search began: the ring's order stays
+        # that of last use
+        i = min(self._next, n)
+        slots.insert(i, self._make())
+        self._next = i + 1
+        return slots[i]
+
+    def _make(self) -> _OutSlot:
+        slot = _OutSlot()
+        slot.flat = torch.empty(self.numel, dtype=torch.float32,
+                                device=self.device)
+        slot.ptr = slot.flat.data_ptr()
+        slot.outs = unflatten(slot.flat, self.layout, self.horizon)
+        outs = slot.outs if self.horizon else (slot.outs,)
+        slot.objs = [slot.flat, *outs, *(t for o in outs for t in o)]
+        if self.horizon:
+            slot.objs.append(slot.outs)
+        del outs
+        slot.storage = slot.flat.untyped_storage()._cdata
+        slot.refs = sum(map(sys.getrefcount, slot.objs))
+        slot.uses = torch._C._storage_Use_Count(slot.storage)
+        return slot
+
+
+class _NativeReplay:
+    """A one-segment card entry's replay in one native call
+    (csrc/graph_replay.cu), its handles read once at capture as plain
+    ints: the graph's executable, the staging slots, their `copied`
+    events, the static program, the static flat outputs and `done`."""
+
+    __slots__ = ("call", "exec", "done", "prog", "prog_bytes", "staging",
+                 "copied", "src", "out_bytes", "index")
+
+    def __init__(self, entry: "_Entry", graph, device: torch.device):
+        from .. import _build
+
+        seg = entry.segments[0]
+        with _on(device):
+            for event in (*seg.copied, seg.done):
+                event.record()  # makes it, on the device
+            # the device the graph was captured on
+            self.index = torch.cuda.current_device()
+        self.call = _build.load_held().zl_graph_replay
+        self.exec = int(graph.raw_cuda_graph_exec())
+        self.done = seg.done.cuda_event
+        self.prog = seg.prog.data_ptr()
+        self.prog_bytes = seg.prog.numel() * seg.prog.element_size()
+        self.staging = [t.data_ptr() for t in seg.staging]
+        self.copied = [e.cuda_event for e in seg.copied]
+        self.src = entry.flat.data_ptr()
+        self.out_bytes = entry.flat.numel() * entry.flat.element_size()
+
+    def __call__(self, slot: int, dst: int) -> None:
+        """Enqueue the replay of the program in staging slot `slot`, its
+        outputs copied to `dst`, on the current stream."""
+        code = self.call(self.exec,
+                         torch._C._cuda_getCurrentRawStream(self.index),
+                         self.done, self.prog, self.staging[slot],
+                         self.prog_bytes, self.copied[slot], dst, self.src,
+                         self.out_bytes, self.index)
+        if code:
+            from .. import _build
+
+            _build.check(_build.load(), code, "zl_graph_replay")
+
+
 class _Segment:
     """One segment's rows of a key's program: pinned staging slots, the
     static program on the segment's device, and a chain's graphs there."""
@@ -208,6 +336,7 @@ class _Segment:
         self.rows = rows
         self.staging = [torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
                         for _ in range(2)]
+        self.staging_np = [t.numpy() for t in self.staging]
         # the copy that last read each staging slot
         self.copied = [torch.cuda.Event() if cuda else None for _ in range(2)]
         self.slot = 0
@@ -220,23 +349,28 @@ class _Segment:
         self.contrib = self.parts = self.peaks = None
         self.fold = self.init = self.mix = None
 
-    def stage(self, prog: np.ndarray, span=_untimed) -> None:
-        """The segment's rows of the host program into a staging slot, then
-        into the static program (non-blocking from pinned memory on CUDA),
-        on the device's current stream after the last replay's end: the
-        wait for the slot's last copy in span dispatch_slot_wait, the
-        copies in dispatch_stage."""
-        if self.done is not None:
-            torch.cuda.current_stream().wait_event(self.done)
+    def next_slot(self, span=_untimed) -> int:
+        """The other staging slot, once its last copy finished (span
+        dispatch_slot_wait)."""
         self.slot ^= 1
         event = self.copied[self.slot]
         with span("dispatch_slot_wait"):
             if event is not None:
                 event.synchronize()
+        return self.slot
+
+    def stage(self, prog: np.ndarray, span=_untimed) -> None:
+        """The segment's rows of the host program into a staging slot, then
+        into the static program (non-blocking from pinned memory on CUDA),
+        on the device's current stream after the last replay's end: the
+        copies in span dispatch_stage."""
+        if self.done is not None:
+            torch.cuda.current_stream().wait_event(self.done)
+        i = self.next_slot(span)
+        event = self.copied[i]
         with span("dispatch_stage"):
-            np.copyto(self.staging[self.slot].numpy(), prog[self.rows])
-            self.prog.copy_(self.staging[self.slot],
-                            non_blocking=event is not None)
+            np.copyto(self.staging_np[i], prog[self.rows])
+            self.prog.copy_(self.staging[i], non_blocking=event is not None)
             if event is not None:
                 event.record()
 
@@ -259,6 +393,8 @@ class _Entry:
         self.peaks_in = None
         self.flat = None
         self.layout = None
+        self.out = None          # the output slots (_OutRing)
+        self.native = None       # a _NativeReplay, where it may be used
         self.launches = {}
         self.replayed = launch_tally.Replays(self.launches, self)
         self.bytes = 0
@@ -276,7 +412,7 @@ class _Entry:
                 seg.stage(prog, span)
 
     def last_program(self) -> np.ndarray:
-        return np.concatenate([seg.staging[seg.slot].numpy()
+        return np.concatenate([seg.staging_np[seg.slot]
                                for seg in self.segments])
 
     def statics(self) -> list:
@@ -308,6 +444,11 @@ class RenderGraphs:
         self.recaptures = 0
         self.replays = 0
         self.warm_replays = 0
+        # replays (not warm) through the native call; output slots made;
+        # replays that found no slot and cloned
+        self.native_replays = 0
+        self.out_slots = 0
+        self.out_slot_fallbacks = 0
         # launches no engine dispatch made, by kernel (module docstring)
         self.warm_launches = collections.Counter()
         self.stale = 0
@@ -345,6 +486,18 @@ class RenderGraphs:
             self.warm_replays += len(held)
         return len(held)
 
+    def replay(self, key: GraphKey, prog: np.ndarray, warm: bool = False,
+               profiler=None):
+        """The replay of `key`'s graphs on `prog`, as `render` replays
+        them, or None where `key` has none (render then captures)."""
+        entry = self._entries.get(key)
+        if entry is None:
+            return None
+        with entry.lock:
+            if entry.dead:
+                return None
+            return self._replay(entry, prog, warm, profiler)
+
     def render(self, key: GraphKey, fn, prog: np.ndarray, bound,
                warm: bool = False, profiler=None) -> tuple:
         """The render of `prog` (host int32) at `key`: a replay of its
@@ -360,60 +513,88 @@ class RenderGraphs:
         replay records its parts on `profiler` (a BlockProfiler), when
         given, as the spans DISPATCH_SPANS. Returns (outputs, captured)."""
         while True:
-            entry = self._entries.get(key)
-            if entry is None:
-                with self._capture_lock:
-                    if key in self._entries:
-                        continue
-                    if bound is not self.bound:
-                        with self._stats_lock:
-                            self.stale += 1
-                        with _on(self.device):
-                            return fn(prog), False
-                    return self._capture(key, fn, prog), True
-            with entry.lock:
-                if entry.dead:
+            out = self.replay(key, prog, warm, profiler)
+            if out is not None:
+                return out, False
+            with self._capture_lock:
+                if key in self._entries:
                     continue
-                return self._replay(entry, prog, warm, profiler), False
+                if bound is not self.bound:
+                    with self._stats_lock:
+                        self.stale += 1
+                    with _on(self.device):
+                        return fn(prog), False
+                return self._capture(key, fn, prog), True
 
     def _replay(self, entry: _Entry, prog: np.ndarray, warm: bool,
                 profiler=None):
         """One replay of `entry` on `prog` (its lock held), its parts timed
         as the spans DISPATCH_SPANS on `profiler`."""
         span = _untimed if profiler is None else profiler.span
-        entry.stage(prog, span)
-        segs = entry.segments
-        # one entry into the outputs' device for the replay and the clone:
-        # entering a CUDA device costs tens of µs of host time
-        with _on(self.device):
-            with span("dispatch_replay"):
-                if entry.mix_in is not None:
-                    for seg in segs:
-                        with _on(seg.device):
-                            seg.contrib.replay()
-                    for prev, seg in zip([None] + segs, segs):
-                        with _on(seg.device):
-                            if prev is not None:
-                                seg.init.copy_(prev.mix)
-                            seg.fold.replay()
-                    entry.mix_in.copy_(segs[-1].mix)
-                    for dst, seg in zip(entry.peaks_in, segs):
-                        dst.copy_(seg.peaks)
-                entry.graph.replay()
-            with span("dispatch_clone"):
-                flat = entry.flat.clone()
-                for seg in segs:
-                    if seg.done is not None:
-                        with _on(seg.device):
-                            seg.done.record()
-        with span("dispatch_unflatten"):
+        native = entry.native
+        if native is None:
+            entry.stage(prog, span)
+        else:
+            if tuple(prog.shape) != entry.shape:
+                raise ValueError(f"program {tuple(prog.shape)} for a graph "
+                                 f"of {entry.shape}")
+            seg = entry.segments[0]
+            i = seg.next_slot(span)
+            with span("dispatch_stage"):
+                np.copyto(seg.staging_np[i], prog)
+        with span("dispatch_out"):
+            out = entry.out
+            slots = len(out.slots)
+            slot = out.take()
             entry.replayed.n += 1
             with self._stats_lock:
                 if warm:
                     self.warm_launches.update(entry.launches)
                 else:
                     self.replays += 1
+                    self.native_replays += native is not None
+                self.out_slots += len(out.slots) - slots
+                self.out_slot_fallbacks += slot is None
+        with span("dispatch_replay"):
+            if native is not None:
+                if slot is not None:
+                    native(i, slot.ptr)
+                    return slot.outs
+                flat = torch.empty_like(entry.flat)
+                native(i, flat.data_ptr())
+            else:
+                flat = self._replay_torch(entry, slot)
+                if slot is not None:
+                    return slot.outs
             return unflatten(flat, entry.layout, entry.key.kind == "horizon")
+
+    def _replay_torch(self, entry: _Entry, slot):
+        """The graphs' replay() through torch (the entry's program staged),
+        the flat outputs copied into `slot`, else cloned (returned)."""
+        segs = entry.segments
+        # one entry into the outputs' device for the replay and the copy:
+        # entering a CUDA device costs tens of µs of host time
+        with _on(self.device):
+            if entry.mix_in is not None:
+                for seg in segs:
+                    with _on(seg.device):
+                        seg.contrib.replay()
+                for prev, seg in zip([None] + segs, segs):
+                    with _on(seg.device):
+                        if prev is not None:
+                            seg.init.copy_(prev.mix)
+                        seg.fold.replay()
+                entry.mix_in.copy_(segs[-1].mix)
+                for dst, seg in zip(entry.peaks_in, segs):
+                    dst.copy_(seg.peaks)
+            entry.graph.replay()
+            flat = entry.flat.clone() if slot is None else \
+                slot.flat.copy_(entry.flat)
+            for seg in segs:
+                if seg.done is not None:
+                    with _on(seg.device):
+                        seg.done.record()
+        return flat
 
     def _capture(self, key: GraphKey, fn, prog: np.ndarray):
         """Capture `fn` at `key` (the capture lock held); returns the
@@ -428,6 +609,8 @@ class RenderGraphs:
         else:
             outs = self._capture_plain(entry, fn)
         entry.bytes += _nbytes(entry.statics())
+        entry.out = _OutRing(entry.layout, key.kind == "horizon",
+                             self.device)
         self._entries[key] = entry
         with self._stats_lock:
             self.captures += 1
@@ -474,8 +657,10 @@ class RenderGraphs:
 
     def _capture_cuda(self, entry: _Entry, fn):
         """One segment on a card: the warm-up render on the side stream,
-        then one graph of the whole render."""
+        then one graph of the whole render, replayed by the native call
+        unless the two drew from the default CUDA generator."""
         prog = entry.segments[0].prog
+        rng = torch.cuda.get_rng_state(self.device)
         with _on(self.device):
             cur = torch.cuda.current_stream()
             if self.device not in self._side:
@@ -494,6 +679,12 @@ class RenderGraphs:
                                      dtype=torch.float32, device=self.device)
         entry.graph, _ = self._record(
             entry, self.device, lambda: _pack(fn(prog), entry.flat) or [])
+        # CUDAGraph.replay() advances the default CUDA generator by what the
+        # graph draws from it (its replay prologue); the native call does
+        # not: it takes only a graph whose render left the generator as it
+        # was
+        if torch.equal(torch.cuda.get_rng_state(self.device), rng):
+            entry.native = _NativeReplay(entry, entry.graph, self.device)
         return outs
 
     def _capture_plain(self, entry: _Entry, fn):
@@ -568,7 +759,7 @@ class RenderGraphs:
             with self._stats_lock:
                 self.bytes -= sum(e.bytes for e in old)
             for entry in old:   # free the pools and static buffers
-                entry.graph = entry.flat = None
+                entry.graph = entry.flat = entry.native = entry.out = None
                 entry.mix_in = entry.peaks_in = None
                 for seg in entry.segments:
                     seg.contrib = seg.fold = seg.parts = seg.peaks = None

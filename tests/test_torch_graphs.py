@@ -328,6 +328,220 @@ def test_horizon_outputs_are_views_of_one_clone():
                for o in outs for t in o)
 
 
+# ------------------------------------------------------ output slots
+
+
+def _slot_render(horizon: bool):
+    """A render of a [4, 3] program whose every output depends on it: a
+    block, or a horizon of 2 slices."""
+    def one(h, s):
+        return RenderOutputs(*(torch.full((2, 3), 10.0 * h + i) + s
+                               for i in range(len(RenderOutputs._fields))))
+
+    def fn(prog):
+        s = torch.as_tensor(prog).to(torch.float32).sum()
+        return (one(0, s), one(1, s)) if horizon else one(0, s)
+    return fn
+
+
+def _flat_of(outs) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in graphs_mod.flatten(outs)])
+
+
+def _slot_graphs(kind: str):
+    g = graphs_mod.RenderGraphs("cpu")
+    bound = object()
+    g.rebind(bound)
+    key = _key(kind)._replace(slices=2 if kind == "horizon" else 1)
+    fn = _slot_render(kind == "horizon")
+    g.render(key, fn, np.zeros((4, 3), np.int32), bound)   # the capture
+    return g, key, fn, bound
+
+
+@pytest.mark.parametrize("hold", ["outputs", "field", "master_slice"])
+@pytest.mark.parametrize("kind", ["block", "horizon"])
+def test_held_outputs_survive_later_replays(kind, hold):
+    """Outputs held (the whole RenderOutputs, or a tuple of them; one field
+    alone; a slice of `master`) stay bit-unchanged across three times the
+    ring's depth of later replays, while those later replays keep their
+    last two outputs alive and drop the rest."""
+    g, key, fn, bound = _slot_graphs(kind)
+    out, _ = g.render(key, fn, np.full((4, 3), 7, np.int32), bound)
+    first = out[-1] if kind == "horizon" else out
+    held = {"outputs": out, "field": first.lane_mix,
+            "master_slice": first.master[:, 1]}[hold]
+    want = (_flat_of(held) if hold == "outputs" else held).clone()
+    del out, first
+    recent = []
+    depth = 0
+    i = 0
+    while i < 3 * max(depth, 3):
+        prog = np.full((4, 3), 100 + i, np.int32)
+        got, _ = g.render(key, fn, prog, bound)
+        assert torch.equal(_flat_of(got), _flat_of(fn(prog)))
+        recent = (recent + [got])[-2:]
+        del got
+        depth = len(g._entries[key].out.slots)
+        i += 1
+    now = _flat_of(held) if hold == "outputs" else held
+    assert torch.equal(now, want)
+    # the held slot, the two kept and one free to write
+    assert depth == 4 and g.out_slots == 4 and g.out_slot_fallbacks == 0
+
+
+@pytest.mark.parametrize("kind", ["block", "horizon"])
+def test_dropped_outputs_let_the_ring_reuse_its_slots(kind):
+    g, key, fn, bound = _slot_graphs(kind)
+    last = None
+    for i in range(200):
+        prog = np.full((4, 3), i, np.int32)
+        last, _ = g.render(key, fn, prog, bound)
+        assert torch.equal(_flat_of(last), _flat_of(fn(prog)))
+    # the last block's outputs held while the next renders: two slots
+    assert g.out_slots == 2 and g.out_slot_fallbacks == 0
+    assert g.replays == 200 and g.native_replays == 0
+
+
+def test_full_ring_falls_back_to_a_clone(monkeypatch):
+    """Past OUT_RING_BYTES a replay clones its outputs: counted, bit-equal,
+    and held as long as any other's; the ring's slots serve again once
+    their outputs are dropped."""
+    monkeypatch.setattr(graphs_mod, "OUT_RING_BYTES",
+                        3 * 4 * len(RenderOutputs._fields) * 6)
+    g, key, fn, bound = _slot_graphs("block")
+    held = []
+    for i in range(7):
+        out, _ = g.render(key, fn, np.full((4, 3), i, np.int32), bound)
+        held.append(out)
+    assert g.out_slots == 3 and g.out_slot_fallbacks == 4
+    for i, out in enumerate(held):
+        assert torch.equal(_flat_of(out),
+                           _flat_of(fn(np.full((4, 3), i, np.int32))))
+    held.clear()
+    for i in range(5):
+        g.render(key, fn, np.full((4, 3), i, np.int32), bound)
+    assert g.out_slots == 3 and g.out_slot_fallbacks == 4
+
+
+def test_threads_replaying_one_key_keep_their_outputs():
+    """Eight threads replay one key at a shortened switch interval, each
+    keeping its last three outputs (whole, or one field alone) and
+    dropping older ones: every output held stays its own program's."""
+    import os
+    import sys
+    import threading
+
+    g, key, fn, bound = _slot_graphs("horizon")
+    failures = []
+
+    def work(t):
+        kept = []
+        for i in range(60):
+            prog = np.full((4, 3), 1000 * t + i, np.int32)
+            out, _ = g.render(key, fn, prog, bound)
+            kept.append((prog, out if i % 2 else out[1].lane_rms))
+            del out
+            kept = kept[-3:]
+            for p, held in kept:
+                want = fn(p)
+                ok = (torch.equal(_flat_of(held), _flat_of(want))
+                      if isinstance(held, tuple)
+                      else torch.equal(held, want[1].lane_rms))
+                if not ok:
+                    failures.append((t, i))
+
+    n = max(8, (os.cpu_count() or 1) + 1)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not failures, failures[:5]
+    assert g.replays == 60 * n and g.out_slot_fallbacks == 0
+    # each thread holds at most three outputs and renders a fourth
+    assert g.out_slots <= 4 * n
+
+
+def test_unheld_sees_views_fields_and_numpy_arrays():
+    """A slot is held while anything outside the ring refers to it: its
+    outputs, a field, a view or a numpy array of a field."""
+    ring = graphs_mod._OutRing([((2, 3), 6)] * len(RenderOutputs._fields),
+                               False, torch.device("cpu"))
+    slot = ring.take()
+    assert graphs_mod._unheld(slot)
+    for make in (lambda: slot.outs, lambda: slot.outs.lane_rms,
+                 lambda: slot.outs.master[1:], lambda: slot.outs.master[0],
+                 lambda: slot.outs.voice_peaks.numpy(),
+                 lambda: slot.outs.strip_dry.reshape(-1)):
+        held = make()
+        assert not graphs_mod._unheld(slot)
+        assert ring.take() is not slot
+        del held
+        assert graphs_mod._unheld(slot)
+    assert len(ring.slots) == 2
+
+
+def test_chain_replays_bit_equal_to_eager():
+    """A 2-shard CPU mesh planned one segment a shard (the chain a mesh
+    across cards replays) through the torch path and the output slots,
+    with some blocks' outputs kept and the rest dropped: every block
+    bit-equal to the same mesh rendering eagerly."""
+    def run(render_graphs, chained):
+        mesh = make_mesh(devices=["cpu"] * 2)
+        eng = AudioEngine("cpu", sample_rate=SR, block_frames=B,
+                          num_voices=32, lookahead=0, mesh=mesh,
+                          render_graphs=render_graphs)
+        if chained:
+            eng._graphs = graphs_mod.RenderGraphs(
+                mesh.devices[0],
+                [(d, i, 1) for i, d in enumerate(mesh.devices)])
+        clip = ClipAudioSource(eng, audio=_tone(0.3, 280.0))
+        eng.start_transport(bpm=120)
+        for ch in range(5):
+            eng.schedule_clip_command(
+                _command(ClipCommand, clip.id, 50 + 4 * ch, ch), 0)
+        eng.warmup()
+        kept, flats = [], []
+        for b in range(40):
+            outs = eng.process_block().outputs
+            flats.append(_flat_of(outs).clone())
+            if b % 3 == 0:
+                kept.append(outs)
+        return kept, flats, eng
+
+    kept, flats, eng = run("auto", True)
+    want_kept, want_flats, _ = run("off", False)
+    for b, (got, want) in enumerate(zip(flats, want_flats)):
+        assert torch.equal(got, want), f"block {b}"
+    for got, want in zip(kept, want_kept):
+        assert torch.equal(_flat_of(got), _flat_of(want))
+    stats = eng.stats()
+    assert stats["graph_segments"] == 2 and stats["graph_replays"] >= 39
+    assert stats["native_replays"] == 0
+    assert 0 < stats["out_slots"] < 40 and stats["out_slot_fallbacks"] == 0
+    assert np.abs(torch.stack(want_flats).numpy()).max() > 0.05
+
+
+def test_replay_is_none_without_a_live_graph():
+    """`replay` replays a captured key as `render` does, and returns None
+    for a key never captured or dropped by a rebind (the engine then
+    builds the render and calls `render`)."""
+    g, key, fn, bound = _slot_graphs("block")
+    prog = np.full((4, 3), 3, np.int32)
+    assert g.replay(_key(voices=8), prog) is None
+    assert torch.equal(_flat_of(g.replay(key, prog)), _flat_of(fn(prog)))
+    assert g.replays == 1
+    g.rebind(object())
+    assert g.replay(key, prog) is None and g.replays == 1
+
+
 def test_capture_failure_raises_and_keeps_no_graph():
     g = graphs_mod.RenderGraphs("cpu")
     bound = object()

@@ -647,6 +647,36 @@ def test_render_graphs_on_card_match_eager():
 
 
 @pytest.mark.cuda
+def test_native_replay_matches_torch_replay_on_card():
+    """The native replay (csrc/graph_replay.cu) of every graph of a horizon
+    engine (lookahead=16: block and horizon keys), V=64, B=128, on the
+    session's programs: bit-equal to the eager render and to the graph's
+    replay() + clone() of the same program (chip_smoke.check_replays); each
+    capture left the CUDA generator as it was (every entry native); after
+    48 blocks every replay went through the native call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from libzl_tpu_torch.engine.engine import AudioEngine
+
+    V, B = 64, 128
+    e = AudioEngine("cuda", block_frames=B, num_voices=V, lookahead=16)
+    chip_smoke.build_session(e, num_voices=V, num_clips=8)
+    e.warmup()
+    progs = chip_smoke.session_programs(e, 3 + 2 * e._lookahead + 4)
+    assert set(progs) == {"block", "horizon"}
+    assert chip_smoke.check_replays(e, progs, "native") == len(e._graphs)
+    assert all(entry.native is not None
+               for entry in e._graphs._entries.values())
+    for _ in range(48):
+        e.process_block()
+    e.drain_speculation()
+    torch.cuda.synchronize()
+    counts = chip_smoke.check_native_counts(e, "native")
+    print(f"native replays {counts}")
+    assert counts["native_replays"] == counts["graph_replays"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("plan", ["one-card", "one-card-chained",
                                   "across-cards"])
 def test_mesh_render_graphs_on_card_match_eager(plan):
