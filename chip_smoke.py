@@ -47,8 +47,8 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    finish graph replayed twice at B=128 and 40000;
 4. slice       — the north-star session (1024 voices, 64 looped clips at
    48 kHz, 120 BPM; the port of bench.py's build_session) through the
-   per-block engine (lookahead=0, voice buckets and ratio ladder off) on
-   "cuda" (fetch resolves to the windows kernel) and on "cpu" (the plain
+   per-block engine (lookahead=0, voice buckets off) on "cuda" (fetch
+   resolves to the windows kernel) and on "cpu" (the plain
    gather path): 8 superblocks (B=1024), 16 live blocks (B=128), then 3
    blocks of 64 voices at B=10240 (67 beat-quantized reset columns), every
    block compared (voice_peaks atol 2e-6; lane_mix and master rtol
@@ -71,8 +71,8 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    synthetic engine-like inputs and on the inputs of the session's last
    per-block dispatch, each beside its bound (the bytes its own inputs
    need at 3.35 TB/s, unique taps counted once) and the share of it
-   reached, and the kernel at ratio rungs 2.0 and 4.0 (p50 over CUDA
-   events: device time, and call time with the host's launch latency);
+   reached (p50 over CUDA events: device time, and call time with the
+   host's launch latency);
    the mixdown kernel (also through 8- and 4-byte copy chunks, with its
    inputs left in L2, and any --compare source of it), its plain version,
    the one-hot torch.matmul it replaces and an empty kernel on its grid, on
@@ -84,7 +84,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    finish on a stacked H=16 horizon and at B=16512 and 40000, each beside
    its bound;
 6. default engine — the session through the engine's default options on
-   "cuda" (voice buckets, ratio ladder; "auto" resolved as CARD_LOOKAHEAD
+   "cuda" (voice buckets; "auto" resolved as CARD_LOOKAHEAD
    says: the per-block path at B=1024 and B=256, H=16 at B=128), and a
    horizon engine at each of those B (lookahead=2 at B=1024, 8 at B=256,
    the default at B=128), through a horizon build, at least two
@@ -93,7 +93,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    compared with a "cpu" engine at lookahead=0 (the rule of phase 4) and
    the horizon engine with a "cuda" engine at lookahead=0 with the same
    buckets (the default where it is per-block): bit-equal; the options
-   must resolve as CARD_LOOKAHEAD and CARD_LADDER say; the fetch kernel's
+   must resolve as CARD_LOOKAHEAD says; the fetch kernel's
    launches must equal the horizon
    slices and per-block blocks rendered with the windows fetch, the
    mixdown kernel's the horizons and per-block blocks dispatched, no
@@ -195,10 +195,9 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
    the horizon spans, renders and kernels a block); the ABI pump at B=128
    at H = 0, 8, 16 (share of its periods, copy wait, misses); the bounce
    drain's K in 1, 8, 16, 32, 64 through the bridge with a null sink at
-   B=1024 and 128 (ms a block, the flush phases); the ratio ladder [2, 4]
-   against [4] on the per-block engine at B=128 and 1024 (graphs, capture
-   seconds, graph MiB, realtime). Each prints the decision PERF.md's rule
-   takes from its numbers beside what "auto" resolves to in the code.
+   B=1024 and 128 (ms a block, the flush phases). Each prints the decision
+   PERF.md's rule takes from its numbers beside what "auto" resolves to in
+   the code.
    Every lookahead setting prints its graphs warm-replayed and its warm
    replays, and each deadline miss with its cause (phase 8's naming), the
    first block after warmup's apart; the pump's by cause;
@@ -283,7 +282,7 @@ LARGE_VOICES = 64
 LARGE_BLOCKS = 3
 # phases 4 and 5 drive the per-block engine (their figures stay comparable
 # with the per-block records in PERF.md); phase 6 the default options
-PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
+PER_BLOCK = dict(lookahead=0, voice_buckets="off")
 BANK_FRAMES = 1 << 22      # SoundBank's default capacity
 
 FETCH_ATOL = 2e-6          # tests/test_fetch_windows.py:54
@@ -479,14 +478,15 @@ def phase_build() -> None:
 
 
 def kernel_inputs(rng, V: int, B: int, n: int, dtype, hostile: bool,
-                  device, r_max: float = 4.0):
+                  device):
     """Random bank, windows and window-relative positions for regions of
-    region_rows(B, r_max). Engine-like draws keep each voice's positions
-    inside its regions at one whole-sample pitch ratio up to r_max, each
+    region_rows(B, R_MAX). Engine-like draws keep each voice's positions
+    inside its regions at one whole-sample pitch ratio up to R_MAX, each
     frame in region A or B at random; hostile draws add negative,
     past-the-end and region-edge positions (p = region-1 reads region B's
     first sample at tap p+1; 2*region-2 is the last valid position,
     2*region-1 the first invalid one)."""
+    from libzl_tpu_torch.ops.fetch_windows import R_MAX as r_max
     from libzl_tpu_torch.ops.fetch_windows import region_rows
 
     region = region_rows(B, r_max)
@@ -1089,9 +1089,8 @@ def phase_slice(device) -> dict:
 DEFAULT_RUNS = ((SUPER_BLOCK, 18, 10, 15), (256, 40, 22, 27),
                 (LIVE_BLOCK, 66, 40, 48))
 # what "auto" resolves to on a card (PERF.md §5, "Dispatch defaults"): the
-# lookahead at each B of DEFAULT_RUNS, the ratio ladder, the bounce drain
+# lookahead at each B of DEFAULT_RUNS, the bounce drain
 CARD_LOOKAHEAD = {SUPER_BLOCK: 0, 256: 0, LIVE_BLOCK: 16}
-CARD_LADDER = [4.0]
 CARD_DRAIN = 64
 
 
@@ -1112,7 +1111,7 @@ def horizon_runs(B: int) -> list:
 
 def default_engines(device, B: int):
     """(a horizon engine on `device`, the per-block engine with the same
-    buckets and ladder on `device`, the per-block engine on "cpu"), each
+    buckets on `device`, the per-block engine on "cpu"), each
     with the session built; the device engines warmed up. The default
     engine is the first where "auto" resolves to a horizon at B, else the
     second, beside the horizon engine of horizon_runs."""
@@ -1179,12 +1178,10 @@ def phase_default_engine(device) -> dict:
         default = hz if CARD_LOOKAHEAD[B] else pb
         check(default._lookahead == CARD_LOOKAHEAD[B] and hz._lookahead > 1
               and default.fetch == "windows"
-              and default._ratio_ladder == CARD_LADDER
               and default._bucket_ladder == [64, 128, 256, 512, 1024],
               f"default options at B={B} resolved to lookahead "
               f"{default._lookahead} (want {CARD_LOOKAHEAD[B]}), fetch "
-              f"{default.fetch}, rungs {default._ratio_ladder} (want "
-              f"{CARD_LADDER}), buckets {default._bucket_ladder}")
+              f"{default.fetch}, buckets {default._bucket_ladder}")
         runs.append((B, n, off_at, strip_at, hz, pb, cpu))
     torch.cuda.synchronize()
     total = {}
@@ -1704,7 +1701,7 @@ def phase_timing(device, card: str, versions: dict, mix_versions: dict,
               f"{p['dispatch']['p50_ms']:.4f} ms; a replay's parts p50: "
               + ", ".join(f"{name[9:]} {ms:.4f}" for name, ms in
                           parts.items())
-              + f" ms; the rest of dispatch (bucket, rung, fuse, key) "
+              + f" ms; the rest of dispatch (bucket, envelope, fuse, key) "
               f"~{p['dispatch']['p50_ms'] - sum(parts.values()):.4f} ms")
     _print_profile(card, "superblock", super_profile,
                    res["super_process_block_ms_p50"])
@@ -1783,35 +1780,6 @@ def phase_timing(device, card: str, versions: dict, mix_versions: dict,
                             for name in versions
                             for ms in [res[f"{name}_ms_{key}"]]))
 
-    # the ratio ladder's rungs: the kernel at region_rows(B, 2.0) against
-    # region_rows(B, 4.0) on the SAME taps (pitch ratios <= 2; region B's
-    # positions re-based from one region size to the other), in turns
-    for V, B in ((NUM_VOICES, LIVE_BLOCK), (NUM_VOICES, SUPER_BLOCK)):
-        args2 = kernel_inputs(np.random.default_rng(7), V, B, BANK_FRAMES,
-                              torch.float32, False, device, r_max=2.0)
-        r2, r4 = fw.region_rows(B, 2.0), fw.region_rows(B, 4.0)
-        pos = args2[1]
-        args4 = (args2[0], torch.where(pos >= r2, pos - r2 + r4, pos)
-                 .contiguous(), *args2[2:])
-        check(torch.equal(fw.fetch_interp(*args2, r_max=2.0),
-                          fw.fetch_interp(*args4, r_max=4.0)),
-              "the rungs read different taps")
-        fns = {2.0: lambda: fw.fetch_interp(*args2, r_max=2.0),
-               4.0: lambda: fw.fetch_interp(*args4, r_max=4.0)}
-        for f in fns.values():
-            for _ in range(5):
-                f()
-        samples = {2.0: [], 4.0: []}
-        for r in (2.0, 4.0, 4.0, 2.0):
-            samples[r] += _events_ms(fns[r], 25, True)
-        for r in (2.0, 4.0):
-            res[f"kernel_ms_{V}x{B}_rmax{r:g}"] = float(
-                np.median(samples[r]))
-        print(f"[{card}] fetch kernel V={V} B={B} device time by ratio rung: "
-              f"rmax 2.0 {res[f'kernel_ms_{V}x{B}_rmax2']:.4f} ms, rmax 4.0 "
-              f"{res[f'kernel_ms_{V}x{B}_rmax4']:.4f} ms (same taps, "
-              f"bit-equal outputs; p50 of 50 each, in turns)")
-
     time_mixdowns(device, card, res, session_mix, mix_versions)
     time_render_kernels(device, card, res, calls, render_versions)
     torch.cuda.synchronize()
@@ -1826,7 +1794,7 @@ def _spans(engine) -> dict:
 
 
 def _default_timing(device, card: str, res: dict) -> None:
-    """The default engine (horizon, chain, buckets, ladder) at both
+    """The default engine (horizon, chain, buckets) at both
     geometries, and the horizon engine beside it where the default is the
     per-block path (horizon_runs): realtime factor and ms/block over
     chained blocks (one sync at the end), SLO misses per kind, DSP load,
@@ -1952,9 +1920,9 @@ def session_programs(e, n: int) -> dict:
     """{kind: the last host program of that kind} of `n` more blocks."""
     seen, real = {}, e._render
 
-    def spy(kind, fetch, rmax, prog, *a, **k):
+    def spy(kind, fetch, prog, *a, **k):
         seen[kind] = prog.copy()
-        return real(kind, fetch, rmax, prog, *a, **k)
+        return real(kind, fetch, prog, *a, **k)
 
     e._render = spy
     try:
@@ -1982,7 +1950,7 @@ def check_replays(e, progs: dict, label: str) -> int:
     for key in keys:
         prog = np.ascontiguousarray(progs[key.kind][:key.voices])
         sound = e._sound_data_for_backend()
-        fn = e._render_fn(key.kind, key.fetch, key.rmax, sound,
+        fn = e._render_fn(key.kind, key.fetch, sound,
                           e._packed_strips_for_backend(), prog.shape[1])
         got, captured = g.render(key, fn, prog, sound)
         want = fn(prog)
@@ -2210,7 +2178,7 @@ def phase_graphs(device, card: str) -> dict:
         counts = check_native_counts(e, f"B={B} {bank} bank {name}")
         res[f"native_{label}"] = counts
         res[f"warmup_{label}"] = warm
-        keys = sorted((k.kind, k.voices, k.rmax, k.fetch)
+        keys = sorted((k.kind, k.voices, k.fetch)
                       for k in e._graphs.keys())
         print(f"[{card}] graphs B={B} {bank} bank, {name} engine "
               f"H={e._lookahead}: {n} graphs (keys "
@@ -3434,7 +3402,6 @@ POLICY_PACED = 384              # paced blocks a round, at B <= 256
 POLICY_PUMP_H = (0, 8, 16)
 POLICY_DRAIN_K = (1, 8, 16, 32, 64)
 POLICY_DRAIN_BLOCKS = {LIVE_BLOCK: 384, SUPER_BLOCK: 128}
-POLICY_LADDERS = ((2.0, 4.0), (4.0,))
 POLICY_K_WITHIN = 0.05          # K: the smallest within 5% of the best
 
 
@@ -3763,69 +3730,14 @@ def policy_drain(device, card: str) -> dict:
     return res
 
 
-def policy_ladder(device, card: str) -> dict:
-    """The ratio ladder on cuda: [2.0, 4.0] against [4.0] on the per-block
-    engine (lookahead 0, voice buckets auto), B = 128 and 1024, a new
-    engine each round (rotated): warmup's graphs, capture seconds and graph
-    MiB, and the chained realtime factor. The ladder is set on the engine
-    before warmup, whatever "auto" resolves to."""
-    res = {}
-    for B in (LIVE_BLOCK, SUPER_BLOCK):
-        runs = {ladder: [] for ladder in POLICY_LADDERS}
-        for r in range(POLICY_ROUNDS):
-            for ladder in _rotated(POLICY_LADDERS, r):
-                e = graph_engine(device, B, lookahead=0)
-                e._ratio_ladder = list(ladder)
-                warm = measured_warmup(e)
-                for _ in range(10):
-                    e.process_block()
-                torch.cuda.synchronize()
-                n = POLICY_BLOCKS[B]
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    out = e.process_block()
-                out.outputs.master.cpu()
-                warm["rt"] = n * B / SAMPLE_RATE / (time.perf_counter() - t0)
-                warm["rungs"] = sorted({k.rmax for k in e._graphs.keys()})
-                runs[ladder].append(warm)
-                del e
-        rows = {}
-        for ladder, rs in runs.items():
-            rows[ladder] = dict(
-                rt=_med_spread([x["rt"] for x in rs]),
-                rt_rounds=[x["rt"] for x in rs],
-                graphs=rs[0]["graphs"], rungs=rs[0]["rungs"],
-                capture_s=_med_spread([x["capture_s"] for x in rs]),
-                mib=rs[0]["graph_bytes"] / 2**20)
-        two, top = rows[POLICY_LADDERS[0]], rows[POLICY_LADDERS[1]]
-        spread = max(two["rt"][1], top["rt"][1])
-        decided = (list(POLICY_LADDERS[0])
-                   if two["rt"][0] - top["rt"][0] > spread
-                   else list(POLICY_LADDERS[1]))
-        res[B] = dict(rows={str(list(k)): v for k, v in rows.items()},
-                      decided=decided)
-        for ladder, r in rows.items():
-            print(f"[{card}] policy ladder B={B} {list(ladder)}: per-block "
-                  f"realtime median {r['rt'][0]:.3f}x spread "
-                  f"{r['rt'][1]:.3f} (rounds "
-                  f"{', '.join(f'{x:.3f}' for x in r['rt_rounds'])}); "
-                  f"warmup {r['graphs']} graphs (rungs {r['rungs']}), "
-                  f"capture median {r['capture_s'][0]:.3f} s spread "
-                  f"{r['capture_s'][1]:.3f}, {r['mib']:.1f} MiB")
-        print(f"[{card}] policy ladder B={B}: decided {decided} (the two "
-              f"rungs only if faster by more than the spread, {spread:.3f})")
-    return res
-
-
 def phase_policy(device, card: str) -> dict:
     """The dispatch defaults on the card (PERF.md §5): lookahead H at three
-    block sizes, H through the pump, the bounce drain's K, the ratio
-    ladder; medians and spreads of interleaved rounds, and the decision
+    block sizes, H through the pump, the bounce drain's K; medians and
+    spreads of interleaved rounds, and the decision
     each rule takes from them."""
     res = {}
     for name, fn in (("lookahead", policy_lookahead),
-                     ("ladder", policy_ladder), ("drain", policy_drain),
-                     ("pump", policy_pump)):
+                     ("drain", policy_drain), ("pump", policy_pump)):
         t0 = time.perf_counter()
         res[name] = fn(device, card)
         print(f"policy {name}: {time.perf_counter() - t0:.1f} s")
@@ -4145,8 +4057,8 @@ def main() -> int:
                          "are two or more)")
     ap.add_argument("--policy-only", action="store_true",
                     help="run phases 1 and 2, then only phase 17 (the "
-                         "dispatch defaults' sweep: lookahead, ratio "
-                         "ladder, bounce drain, the pump's lookahead)")
+                         "dispatch defaults' sweep: lookahead, bounce "
+                         "drain, the pump's lookahead)")
     ap.add_argument("--first-blocks-only", action="store_true",
                     help="run phases 1 and 2, then only phase 18 (the "
                          "first blocks after warmup) with "

@@ -494,6 +494,7 @@ def measure_kernel_resident(run: Run, engine, rounds: int = 5,
     `dispatch_floor_ms` (the host wall loop over one trivial op). Returns
     the render's kernel calls (capture_calls)."""
     from . import convert
+    from .device import on_device
     from .engine import hostcore
     from .ops import voice as voice_ops
     from .parallel import sharding
@@ -509,11 +510,8 @@ def measure_kernel_resident(run: Run, engine, rounds: int = 5,
     else:
         pi, pf = voice_ops.pack_program(engine.pool.build_program(**clock))
     engine.pool.restore_state(snap)
-    fetch, rmax = engine.fetch, engine._render_rmax(pi, pf)
-    if rmax is None:
-        # over-envelope pitch: the engine's own fallback, the region-free
-        # gather at the declared envelope
-        fetch, rmax = "gather", engine.max_pitch_ratio
+    # over-envelope pitch: the engine's own fallback, the region-free gather
+    fetch = engine.fetch if engine._fits_envelope(pi, pf) else "gather"
     fused = convert.upload(voice_ops.fuse_packed(pi, pf), engine.device)
     sound = engine._sound_data_for_backend()
     strips = engine._packed_strips_for_backend()
@@ -522,9 +520,9 @@ def measure_kernel_resident(run: Run, engine, rounds: int = 5,
         return sharding.render_block_sharded(
             engine.mesh, sound, fused, strips,
             block_frames=engine.block_frames, quirk_gain=engine.quirk_gain,
-            fetch=fetch, max_pitch_ratio=rmax)
+            fetch=fetch, max_pitch_ratio=engine.max_pitch_ratio)
 
-    with engine._on_device():
+    with on_device(engine.device):
         calls = capture_calls(render)
         run.sync()
         host_ms = []

@@ -53,7 +53,7 @@ import torch
 
 from .. import _build
 from ..constants import BEAT_SUBDIVISIONS, TICKS_PER_BAR
-from ..device import device_from_env
+from ..device import device_from_env, on_device
 from ..engine.render import RenderOutputs
 from ..io.sinks import make_sink
 from ..io.sources import make_source
@@ -312,7 +312,7 @@ class EngineRuntime:
         # (recording) and a meter-cadence block's session arrays
         zero = self.engine._zero_outputs()
         meters = zero.lane_peaks.numel() + zero.master_peak.numel()
-        with self.engine._on_device():
+        with on_device(self.engine.device):
             self._ring = _StageRing(
                 self.engine.device, self.pipeline_depth + 2,
                 sum(t.numel() for t in zero)
@@ -358,7 +358,7 @@ class EngineRuntime:
         if self._pump is not None:
             return
         # on the card, load the kernel library and render every (bucket,
-        # rung, kind) the session can dispatch once — one horizon on the
+        # kind) the session can dispatch once — one horizon on the
         # spec dispatch thread — BEFORE going realtime (the initJuce-time
         # setup-cost analog, lib/libzl.cpp:358-410)
         if self.engine.device.type == "cuda":
@@ -649,7 +649,7 @@ class EngineRuntime:
             raise RuntimeError("step_blocks requires the pump to be stopped")
         engine = self.engine
         span = self.profiler.span
-        with engine._on_device():
+        with on_device(engine.device):
             for _ in range(int(n)):
                 # a block's root span: the engine's process_block, then the
                 # runtime's delivery of it
@@ -674,7 +674,7 @@ class EngineRuntime:
         """Render paced to the wall clock, a few blocks ahead (the JACK
         period callback + latency analog)."""
         _set_realtime_priority()
-        with self.engine._on_device():
+        with on_device(self.engine.device):
             self._pump_blocks()
         # a give-up exit (100 consecutive failures) must not leave the
         # runtime looking alive: _running=True would make start_pump a

@@ -343,7 +343,6 @@ def cmd_env(args) -> int:
     from . import _build
     from .engine.engine import AudioEngine
     from .io import alsa, codecs
-    from .ops.fetch_windows import parse_suffix
     from .ops.resample import resolve_stretch_backend
 
     print("libzl_tpu_torch environment report")
@@ -356,13 +355,8 @@ def cmd_env(args) -> int:
         print("  cards: none (torch.cuda.is_available() is False)")
     eng = AudioEngine(args.device, num_voices=64)
     print(f"  device: {eng.device}")
-    print(f"  fetch resolution (auto): {eng.fetch}")
-    if eng.fetch.startswith("windows"):
-        prec, variant, chunk, align, group = parse_suffix(
-            eng.fetch.partition(":")[2])
-        print(f"    windows suffix: precision={prec} variant={variant} "
-              f"chunk={chunk} align={align} group={group} (parsed as the "
-              f"reference does; one CUDA kernel serves every variant)")
+    print(f"  fetch resolution (auto): {eng.fetch}, pitch envelope "
+          f"{eng.max_pitch_ratio} (past it: the gather fetch)")
     lib = _build.library_path()
     print(f"  kernel library (csrc/*.cu): "
           f"{'built, ' if lib.is_file() else 'not built yet (nvcc on first use), '}"
@@ -372,9 +366,6 @@ def cmd_env(args) -> int:
           + (f"{eng._lookahead} blocks (window "
              f"{eng._lookahead * eng.block_frames} frames)"
              if eng._lookahead else "off"))
-    print("  ratio ladder: "
-          + (f"rungs {eng._ratio_ladder}" if len(eng._ratio_ladder) > 1
-             else "off (single rung)"))
     print(f"  stretch backend (auto): {resolve_stretch_backend()}")
     print(f"  libasound (ALSA sinks/sources/midi): {alsa.available()}")
     for name, fn in (

@@ -47,7 +47,7 @@
 // B, each region's run advancing by at most r a frame), so shared memory
 // holds min(4, (region - 512) / B) f + 4 samples a channel and voice, plus
 // the alignment slack: region - 512 >= r B + 2 (soundbank.region_tail_guard)
-// sizes it for the caller's rung, and 4 is the engine's MAX_PITCH_RATIO.
+// sizes it for the caller's envelope, and 4 is the engine's MAX_PITCH_RATIO.
 // Twice that (a whole run in each region) halves the CTAs an SM holds and
 // measured slower on the engine's own inputs. A voice whose taps need more
 // (positions that jump between the regions, or a direct call at a larger

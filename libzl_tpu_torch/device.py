@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 
@@ -53,3 +54,16 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}: cuda or cpu")
     return dev
+
+
+def on_device(device: torch.device):
+    """A context that makes `device` the calling thread's current CUDA
+    device (it is per thread). A null context on the CPU, for "cuda"
+    without an index (the current device already), and where the thread
+    has it current: entering costs microseconds of host a call, and the
+    engine, the bridge and the render all enter their device every
+    block."""
+    if (device.type == "cuda" and device.index is not None
+            and torch.cuda.current_device() != device.index):
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

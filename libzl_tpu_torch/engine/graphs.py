@@ -15,9 +15,11 @@ each render shape is captured once and replayed.
                                                               v
       an output slot's ready views <─copy── flat static outputs [all fields]
 
-- `GraphKey` names a shape: kind ("block" or "horizon"), voices rendered
-  (the bucket), fetch, rung (max pitch ratio), slices, quirk_gain and the
-  bank's shape, dtype and layout. A graph reads the bank, the strips and its
+- `GraphKey` names what can differ between two renders of one engine: kind
+  ("block" or "horizon"), voices rendered (the bucket), fetch ("windows",
+  or "gather" for the over-envelope fallback) and the bank's shape and
+  dtype; the rest (H, quirk_gain, the bank's layout, the pitch envelope) is
+  the engine's for life. A graph reads the bank, the strips and its
   program where they lay at capture: the engine keeps all three in place
   (`copy_`), and re-binds the graphs when the bank has to grow (`rebind`).
 - The segment plan (`parallel/sharding.segments(mesh)`): the mesh's runs of
@@ -94,6 +96,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import on_device
 from ..ops import launch_tally
 from . import render as render_mod
 
@@ -126,11 +129,8 @@ def _untimed(name: str):
 class GraphKey(NamedTuple):
     kind: str            # "block" or "horizon"
     voices: int          # program rows rendered: the bucket
-    fetch: str
-    rmax: float          # the rung
-    slices: int          # H for a horizon, 1 for a block
-    quirk_gain: bool
-    bank: tuple          # (shape, dtype, layout) of the device bank
+    fetch: str           # "windows" or "gather"
+    bank: tuple          # (shape, dtype) of the device bank
 
 
 def flatten(outs) -> list:
@@ -163,12 +163,6 @@ def _layout(outs) -> list:
     if dtypes != {torch.float32}:
         raise TypeError(f"render outputs must all be float32, got {dtypes}")
     return [(tuple(t.shape), t.numel()) for t in tensors]
-
-
-def _on(device: torch.device):
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _nbytes(tensors) -> int:
@@ -296,7 +290,7 @@ class _NativeReplay:
         from .. import _build
 
         seg = entry.segments[0]
-        with _on(device):
+        with on_device(device):
             for event in (*seg.copied, seg.done):
                 event.record()  # makes it, on the device
             # the device the graph was captured on
@@ -408,7 +402,7 @@ class _Entry:
             raise ValueError(f"program {tuple(prog.shape)} for a graph of "
                              f"{self.shape}")
         for seg in self.segments:
-            with _on(seg.device):
+            with on_device(seg.device):
                 seg.stage(prog, span)
 
     def last_program(self) -> np.ndarray:
@@ -522,7 +516,7 @@ class RenderGraphs:
                 if bound is not self.bound:
                     with self._stats_lock:
                         self.stale += 1
-                    with _on(self.device):
+                    with on_device(self.device):
                         return fn(prog), False
                 return self._capture(key, fn, prog), True
 
@@ -574,13 +568,13 @@ class RenderGraphs:
         segs = entry.segments
         # one entry into the outputs' device for the replay and the copy:
         # entering a CUDA device costs tens of µs of host time
-        with _on(self.device):
+        with on_device(self.device):
             if entry.mix_in is not None:
                 for seg in segs:
-                    with _on(seg.device):
+                    with on_device(seg.device):
                         seg.contrib.replay()
                 for prev, seg in zip([None] + segs, segs):
-                    with _on(seg.device):
+                    with on_device(seg.device):
                         if prev is not None:
                             seg.init.copy_(prev.mix)
                         seg.fold.replay()
@@ -592,7 +586,7 @@ class RenderGraphs:
                 slot.flat.copy_(entry.flat)
             for seg in segs:
                 if seg.done is not None:
-                    with _on(seg.device):
+                    with on_device(seg.device):
                         seg.done.record()
         return flat
 
@@ -628,7 +622,7 @@ class RenderGraphs:
                 outs = step()
             graph = _PlainGraph(step, outs)
         else:
-            with _on(device):
+            with on_device(device):
                 cur = torch.cuda.current_stream()
                 side = self._side.get(device)
                 if side is None:
@@ -661,7 +655,7 @@ class RenderGraphs:
         unless the two drew from the default CUDA generator."""
         prog = entry.segments[0].prog
         rng = torch.cuda.get_rng_state(self.device)
-        with _on(self.device):
+        with on_device(self.device):
             cur = torch.cuda.current_stream()
             if self.device not in self._side:
                 self._side[self.device] = torch.cuda.Stream()

@@ -167,7 +167,7 @@ class VoicePool:
         # UNBOUNDED like the reference (lib/SamplerSynthVoice.cpp:115-116:
         # no ceiling — note 36 above root plays at 8x). Ratios beyond the
         # engine's declared windows-kernel envelope dispatch through the
-        # slab-free gather fetch (engine._render_rmax returns None).
+        # region-free gather fetch (engine._fits_envelope is False).
         ratio = pitch_ratio(midi_note, root_note, source_rate, self.output_rate)
         self.rate_int[v] = int(ratio)
         self.rate_frac[v] = np.float32(ratio - int(ratio))

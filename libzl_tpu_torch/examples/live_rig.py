@@ -8,7 +8,7 @@ groovebox, in order:
    once into build/libzl_tpu_torch/ (named by a hash of their sources);
 2. engine construction (bucketed dispatch is the default);
 3. warmup: on the card, `start_pump` loads the kernels and renders every
-   (bucket, rung, kind) the session can dispatch BEFORE realtime, and pays
+   (bucket, kind) the session can dispatch BEFORE realtime, and pays
    the first device->host readback there, never inside the pump;
 4. audio sink + MIDI wiring (hardware hot-plug where ALSA exists; a
    virtual port stands in everywhere else);

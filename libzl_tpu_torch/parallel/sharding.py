@@ -44,7 +44,6 @@ forms, which these two functions port.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -52,7 +51,7 @@ import torch
 
 from .. import convert
 from ..constants import DEFAULT_BLOCK_FRAMES
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..engine import render as render_mod
 from ..ops import voice as voice_ops
 from ..ops.mixdown import lane_mixdown
@@ -120,14 +119,6 @@ def segments(mesh: Mesh) -> list:
         else:
             plan.append((dev, i, 1))
     return plan
-
-
-def _on(device: torch.device):
-    """`device` as the calling thread's current device (a no-op on the
-    CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _shard_rows(mesh: Mesh, rows: int) -> int:
@@ -202,7 +193,7 @@ class ShardedRender:
                   max_pitch_ratio=self.max_pitch_ratio)
         sound = self.sound_by_device[dev]
         parts, peaks = [], []
-        with _on(dev):
+        with on_device(dev):
             rows = convert.upload(rows, dev)
             for i in range(n):
                 shard = rows[i * s:(i + 1) * s]
@@ -231,13 +222,13 @@ class ShardedRender:
 
     def fold(self, seg: tuple, parts: list, init):
         mix = init
-        with _on(seg[0]):
+        with on_device(seg[0]):
             for contrib, lane in parts:
                 mix = lane_mixdown(contrib, lane, init=mix)
         return mix
 
     def tail(self, mix, peaks: list, rows: int):
-        with _on(self.mesh.devices[0]):
+        with on_device(self.mesh.devices[0]):
             # one finish call a render: a horizon's [H, 12, B, 2] mix
             # finishes its H slices at once
             outs = render_mod.finish_block(

@@ -1,14 +1,14 @@
-"""Bucketed prefix rendering and the ratio ladder on the port (AudioEngine
-on "cpu"), the scenarios of tests/test_voice_buckets.py and
-tests/test_engine.py::test_ratio_ladder_dispatch.
+"""Bucketed prefix rendering and the pitch envelope on the port
+(AudioEngine on "cpu"), the scenarios of tests/test_voice_buckets.py and
+of tests/test_engine.py's ladder dispatch at the port's one rung.
 
 First-idle allocation keeps live voices at low indices, so the engine
 renders the smallest ladder bucket covering the highest active index;
 bucketed and full renders are bit-equal per block, voice_peaks keeps the
 pool's shape. A horizon engine with buckets is held to the full-pool horizon
 at the reference's atol 1e-5 (tests/test_voice_buckets.py:228-244). The
-ratio ladder renders the windows fetch at the lowest rung covering every
-active pitch ratio: the same taps, so the same output as the top rung.
+windows fetch covers every pitch ratio up to `max_pitch_ratio`; a block
+with a ratio past it renders through the gather fetch at the full pool.
 """
 
 import numpy as np
@@ -78,7 +78,7 @@ def test_ladder_shape():
     ({"lookahead": 8, "fetch": "windows"}, 6),
 ])
 def test_warmup_renders_every_dispatch(kw, graphs):
-    """warmup renders the reference's work list: (bucket, rung, kind) for
+    """warmup renders the reference's work list: (bucket, kind) for
     every dispatch the session can make, and nothing else."""
     eng, clip = _make_engine(**kw)
     assert eng.warmup() == graphs
@@ -247,13 +247,13 @@ def test_bucketed_sparse_session_is_bit_equal(lookahead):
     eng_b.drain_speculation()
 
 
-# ------------------------------------------------------------ ratio ladder
+# --------------------------------------------------------- pitch envelope
 
 
-def _ladder_engine(note, **kw):
+def _envelope_engine(note, **kw):
     kw.setdefault("lookahead", 0)
-    e = AudioEngine("cpu", sample_rate=SR, num_voices=16, fetch="windows",
-                    **kw)
+    kw.setdefault("fetch", "windows")
+    e = AudioEngine("cpu", sample_rate=SR, num_voices=16, **kw)
     t = np.arange(12000) / SR
     c = ClipAudioSource(e, audio=AudioData(
         (0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)[:, None], SR))
@@ -272,55 +272,50 @@ def _program(e):
     return pack_program(prog)
 
 
-@pytest.mark.parametrize("note,rung", [(67, 2.0), (79, 4.0), (86, None)])
-def test_ratio_ladder_rung_choice(note, rung):
-    """Note 67 (ratio 1.5 over root 60) fits the 2.0 rung, note 79 (~3.0)
-    needs the top rung, note 86 (~4.5) is over the envelope: gather."""
-    e = _ladder_engine(note)
-    assert e._ratio_ladder == [2.0, 4.0]
+@pytest.mark.parametrize("note,fits", [(67, True), (79, True), (86, False)])
+def test_pitch_envelope_choice(note, fits):
+    """Note 67 (ratio 1.5 over root 60) and note 79 (~3.0) fit the windows
+    envelope (max_pitch_ratio 4.0), note 86 (~4.5) is over it: the block
+    renders through the full-pool gather (lib/SamplerSynthVoice.cpp:115-116
+    bounds no ratio)."""
+    e = _envelope_engine(note)
     e.process_block()
     pi, pf = _program(e)
-    assert e._render_rmax(pi, pf) == rung
-    # rungs are pruned below RUNG_MIN_SHARD_VOICES
-    assert e._allowed_rungs(None) == [4.0]
-    e.RUNG_MIN_SHARD_VOICES = 16
-    assert e._allowed_rungs(None) == [2.0, 4.0]
-    assert e._render_rmax(pi, pf, [4.0]) == (None if rung is None else 4.0)
+    assert e._fits_envelope(pi, pf) is fits
+    e.process_block()
+    assert e.fetch_dispatches == ({"windows": 2, "gather": 0} if fits
+                                  else {"windows": 0, "gather": 2})
+
+
+@pytest.mark.parametrize("envelope,note,fits", [
+    (2.0, 67, True), (2.0, 79, False), (3.0, 79, True), (3.0, 86, False)])
+def test_envelope_is_max_pitch_ratio(envelope, note, fits):
+    """The windows envelope is the engine's `max_pitch_ratio`, whatever it
+    is set to: note 67 (ratio 1.5) fits 2.0, note 79 (~2.997) fits 3.0 and
+    not 2.0, note 86 (~4.5) fits neither."""
+    e = _envelope_engine(note, max_pitch_ratio=envelope)
+    e.process_block()
+    pi, pf = _program(e)
+    assert e._fits_envelope(pi, pf) is fits
+    assert e.fetch_dispatches == {"windows": int(fits),
+                                  "gather": int(not fits)}
 
 
 @pytest.mark.parametrize("lookahead", [0, 8])
-def test_ratio_ladder_dispatch_is_output_neutral(monkeypatch, lookahead):
-    """The 2.0 rung renders through region_rows(B, 2.0) — bit-equal to the
-    ladder-off engine; horizons take the rung, a lookahead engine's
-    per-block dispatches the top rung only."""
-    from libzl_tpu_torch.ops import voice as voice_ops
-
-    # speculative chains of earlier tests' engines may still be rendering
-    # on the process-wide workers: let them finish before spying
-    AudioEngine._spec_sim_executor().submit(lambda: None).result()
-    AudioEngine._spec_executor().submit(lambda: None).result()
-    rmaxes = []
-    # every dispatch renders each shard's contributions through voice_contrib
-    orig = voice_ops.voice_contrib
-
-    def spy(*a, **k):
-        rmaxes.append(k["max_pitch_ratio"])
-        return orig(*a, **k)
-
+def test_over_envelope_dispatch_matches_gather(lookahead):
+    """An over-envelope note in a windows engine renders through the gather
+    fetch, per block and in horizons alike, within the windows-vs-gather
+    tolerance of a gather engine's blocks."""
     outs = {}
-    for ladder in ("auto", "off"):
-        e = _ladder_engine(67, lookahead=lookahead, ratio_ladder=ladder)
-        e.RUNG_MIN_SHARD_VOICES = 16
-        monkeypatch.setattr(voice_ops, "voice_contrib", spy)
-        rmaxes.clear()
-        outs[ladder] = np.concatenate(
+    for fetch in ("windows", "gather"):
+        e = _envelope_engine(86, lookahead=lookahead, fetch=fetch)
+        outs[fetch] = np.concatenate(
             [e.process_block().outputs.master.numpy() for _ in range(12)])
-        monkeypatch.setattr(voice_ops, "voice_contrib", orig)
         e.drain_speculation()
-        if ladder == "auto":
-            seen = set(rmaxes)
-        assert e.fetch_dispatches["gather"] == 0
-    np.testing.assert_array_equal(outs["auto"], outs["off"])
-    assert np.abs(outs["auto"]).max() > 0.05
-    # per-block dispatches of a lookahead engine stay on the top rung
-    assert seen == ({2.0} if lookahead == 0 else {2.0, 4.0})
+        if fetch == "windows":
+            # horizons count their slices, speculative ones included
+            assert e.fetch_dispatches["windows"] == 0
+            assert e.fetch_dispatches["gather"] >= 12
+            assert (e.render_dispatches["horizon"] > 0) == bool(lookahead)
+    np.testing.assert_allclose(outs["windows"], outs["gather"], atol=2e-6)
+    assert np.abs(outs["windows"]).max() > 0.05

@@ -76,6 +76,16 @@ def test_env_cpu(capsys):
         assert line in out, line
 
 
+def test_env_reports_the_pitch_envelope(capsys):
+    """The env report names the fetch and its one pitch envelope, past
+    which a block renders through the gather fetch."""
+    assert main(["env", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert ("fetch resolution (auto): gather, pitch envelope 4.0 (past it: "
+            "the gather fetch)") in out
+    assert "ladder" not in out and "rung" not in out
+
+
 def test_trace_cpu(tmp_path, capsys):
     src, out = tmp_path / "in.wav", tmp_path / "trace"
     make_tone(src, seconds=0.2)

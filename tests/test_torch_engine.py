@@ -14,6 +14,7 @@ atol 2e-6 per voice in the densest lane (chip_smoke.py's rule; the script
 puts one voice on each lane).
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -35,9 +36,9 @@ SR = 48000
 V = 32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the per-block path: these tests count one dispatch per rendered block; the
-# default engine (lookahead horizon, buckets, ratio ladder) has its own tests
+# default engine (lookahead horizon, buckets) has its own tests
 # (tests/test_torch_lookahead.py, tests/test_torch_buckets.py)
-PER_BLOCK = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
+PER_BLOCK = dict(lookahead=0, voice_buckets="off")
 # every reference engine takes the numpy program builder: the reference's
 # own tests hold it bit-equal to the native host core (tests/test_hostcore.py)
 REF_HOST = dict(host_core="numpy")
@@ -274,6 +275,37 @@ def test_cuda_device_without_a_card_raises():
         AudioEngine("cuda", num_voices=8)
 
 
+@pytest.mark.parametrize("device,current,entered", [
+    ("cpu", None, False), ("cuda", 0, False), ("cuda:0", 0, False),
+    ("cuda:1", 0, True)])
+def test_on_device_enters_only_another_card(monkeypatch, device, current,
+                                            entered):
+    """The one device-entry helper (device.on_device) enters a card only
+    where it is not the calling thread's current device: a null context on
+    the CPU (which reads no current card), for "cuda" without an index and
+    on the current card."""
+    from libzl_tpu_torch.device import on_device
+
+    def current_device():
+        assert current is not None, "the CPU read the current card"
+        return current
+
+    entries = []
+
+    @contextlib.contextmanager
+    def enter(dev):
+        entries.append(dev)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", current_device)
+    monkeypatch.setattr(torch.cuda, "device", enter)
+    ctx = on_device(torch.device(device))
+    with ctx:
+        pass
+    assert entries == ([torch.device(device)] if entered else [])
+    assert isinstance(ctx, contextlib.nullcontext) is not entered
+
+
 @pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_are_rejected(kw):
     """A mesh is the port's own (parallel/sharding.Mesh): anything else, a
@@ -287,21 +319,20 @@ def test_unported_options_are_rejected(kw):
     (128, 16, {"lookahead": 16}), (128, 16, {"lookahead": 1}),
     (128, 128, {"voice_buckets": "auto"}), (128, 128, {"voice_buckets": "off"}),
     (128, 64, {}), (128, 16, {"fetch": "windows"}),
-    (128, 16, {"fetch": "windows", "ratio_ladder": "off"}),
     (128, 16, {"fetch": "windows", "max_pitch_ratio": 2.0}),
 ])
 def test_options_resolve_as_the_reference(B, V, kw):
-    """lookahead, voice_buckets and ratio_ladder (defaults "auto") resolve
-    to what the reference's jax engine resolves them to; the gather fetch
-    (the CPU's auto) has a single rung, like the reference's."""
+    """lookahead and voice_buckets (defaults "auto") resolve to what the
+    reference's jax engine resolves them to, and so does the fetch, its
+    suffix dropped."""
     port = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                        **kw)
     ref = RefEngine(sample_rate=SR, block_frames=B, num_voices=V,
                     backend="jax", **REF_HOST, **kw)
     assert port._lookahead == ref._lookahead
     assert port._bucket_ladder == ref._bucket_ladder
-    assert port._ratio_ladder == ref._ratio_ladder
-    assert port.fetch.startswith("windows") == ref.fetch.startswith("windows")
+    assert port.fetch == ("windows" if ref.fetch.startswith("windows")
+                          else "gather")
 
 
 def test_default_engine_resolution():
@@ -310,11 +341,7 @@ def test_default_engine_resolution():
     assert AudioEngine("cpu", block_frames=4096, num_voices=16)._lookahead == 0
     eng = AudioEngine("cpu", num_voices=1024)
     assert eng._bucket_ladder == [64, 128, 256, 512, 1024]
-    assert eng._ratio_ladder == [4.0]          # gather: one rung
-    assert AudioEngine("cpu", num_voices=16, fetch="windows")._ratio_ladder \
-        == [2.0, 4.0]
-    for kw in ({"voice_buckets": "banana"}, {"ratio_ladder": "on"},
-               {"lookahead": "soon"}):
+    for kw in ({"voice_buckets": "banana"}, {"lookahead": "soon"}):
         with pytest.raises(ValueError):
             AudioEngine("cpu", num_voices=16, **kw)
 
@@ -332,19 +359,6 @@ def test_cpu_engine_never_reads_the_card_rule(monkeypatch, B):
     monkeypatch.setattr(engine_mod, "_card_lookahead", card_rule)
     eng = AudioEngine("cpu", block_frames=B, num_voices=16)
     assert eng._lookahead == min(16, 2048 // B)
-
-
-def test_one_rung_ladder_ignores_the_rung_size_threshold():
-    """A one-rung ladder (a card's "auto", or "off") dispatches its rung at
-    every bucket, whatever RUNG_MIN_SHARD_VOICES says."""
-    eng = AudioEngine("cpu", num_voices=64, fetch="windows",
-                      ratio_ladder="off")
-    eng.RUNG_MIN_SHARD_VOICES = 1
-    assert [eng._allowed_rungs(s) for s in (None, 8, 64)] == [[4.0]] * 3
-    two = AudioEngine("cpu", num_voices=64, fetch="windows")
-    two.RUNG_MIN_SHARD_VOICES = 32
-    assert two._allowed_rungs(64) == [2.0, 4.0]
-    assert two._allowed_rungs(16) == [4.0]
 
 
 def test_bad_options_are_rejected():

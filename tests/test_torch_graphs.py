@@ -56,27 +56,24 @@ WORK_CASES = [
     ({"lookahead": 8}, 4),
     ({"fetch": "windows"}, 3),
     ({"lookahead": 8, "fetch": "windows"}, 6),
-    # the ratio ladder's two rungs at both buckets
-    ({"lookahead": 4, "fetch": "windows", "rungs": True}, 8),
 ]
 
 
 def _reference_work(monkeypatch, kw) -> tuple:
-    """(warmed_graphs, the set of (kind, voices, fetch, rmax) renders) of the
-    reference engine's warmup with `kw`, its render functions spied."""
+    """(warmed_graphs, the set of (kind, voices, fetch) renders) of the
+    reference engine's warmup with `kw`, its render functions spied; every
+    render at the one envelope, 4.0 (at V=128 the reference's ladder keeps
+    its top rung alone)."""
     kw = dict(kw)
-    rungs = kw.pop("rungs", False)
     kw.setdefault("lookahead", 0)
     ref = RefEngine(sample_rate=SR, backend="jax", block_frames=B,
                     num_voices=V, host_core="numpy", **kw)
-    if rungs:
-        ref.RUNG_MIN_SHARD_VOICES = 64
     calls = set()
 
     def spy(kind):
         def render(sound, prog, strips, **k):
-            calls.add((kind, prog.shape[0], k["fetch"],
-                       float(k["max_pitch_ratio"])))
+            assert float(k["max_pitch_ratio"]) == 4.0
+            calls.add((kind, prog.shape[0], k["fetch"]))
             out = types.SimpleNamespace(master=np.zeros((B, 2), np.float32))
             return out if kind == "block" else (out,)
         return render
@@ -90,20 +87,17 @@ def _reference_work(monkeypatch, kw) -> tuple:
 @pytest.mark.parametrize("kw,graphs", WORK_CASES)
 def test_warmup_captures_the_reference_work_list(monkeypatch, kw, graphs):
     """warmup() captures one graph per item of the reference's work list
-    (bucket, rung, kind, and the gather fallback of a windows engine), and
+    (bucket, kind, and the gather fallback of a windows engine), and
     warmed_graphs counts them."""
     want_n, want = _reference_work(monkeypatch, kw)
     kw = dict(kw)
-    rungs = kw.pop("rungs", False)
     kw.setdefault("lookahead", 0)
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                       **kw)
-    if rungs:
-        eng.RUNG_MIN_SHARD_VOICES = 64
     ClipAudioSource(eng, audio=_tone(0.25, 220.0))
     assert eng.warmup() == graphs == want_n
     keys = eng._graphs.keys()
-    assert {(k.kind, k.voices, k.fetch, k.rmax) for k in keys} == want
+    assert {(k.kind, k.voices, k.fetch) for k in keys} == want
     assert len(keys) == graphs
     stats = eng.stats()
     assert stats["warmed_graphs"] == stats["graphs"] == graphs
@@ -184,7 +178,6 @@ def _port(render_graphs: str):
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                       lookahead=4, fetch="windows",
                       render_graphs=render_graphs)
-    eng.RUNG_MIN_SHARD_VOICES = 64
     # a small bank, so the mid-session clip load grows it
     eng.bank = SoundBank(capacity_frames=1 << 16,
                          tail_guard=eng.bank._tail_guard)
@@ -218,7 +211,6 @@ def test_graph_session_is_bit_equal_to_eager(sessions):
     assert eng.bank.capacity_frames > 1 << 16
     keys = eng._graphs.keys()
     assert {k.voices for k in keys} == {64, 128}
-    assert {k.rmax for k in keys if k.fetch != "gather"} == {2.0, 4.0}
     assert {k.bank[0] for k in keys} == {(2, eng.bank.capacity_frames)}
     # every render replayed a graph or captured one mid-session
     renders = sum(eng.render_dispatches.values())
@@ -261,8 +253,8 @@ def test_graph_session_matches_reference(sessions):
 
 
 def _key(kind="block", voices=4):
-    return graphs_mod.GraphKey(kind, voices, "windows", 4.0, 1, False,
-                               ((2, 64), "torch.float32", "planar"))
+    return graphs_mod.GraphKey(kind, voices, "windows",
+                               ((2, 64), "torch.float32"))
 
 
 def _fake_render(counted: list):
@@ -352,7 +344,7 @@ def _slot_graphs(kind: str):
     g = graphs_mod.RenderGraphs("cpu")
     bound = object()
     g.rebind(bound)
-    key = _key(kind)._replace(slices=2 if kind == "horizon" else 1)
+    key = _key(kind)
     fn = _slot_render(kind == "horizon")
     g.render(key, fn, np.zeros((4, 3), np.int32), bound)   # the capture
     return g, key, fn, bound
@@ -602,7 +594,7 @@ def test_rebind_recaptures_every_graph():
 
     def recapture(key, cols):
         seen.append((key, cols))
-        return key._replace(bank=((2, 128), "torch.float32", "planar")), \
+        return key._replace(bank=((2, 128), "torch.float32")), \
             _fake_render(calls)
 
     assert g.rebind(second, recapture) == 1
@@ -637,8 +629,7 @@ CONFIGS = [
     dict(lookahead=4),
     dict(lookahead=4, fetch="windows", bank_dtype="int16"),
     dict(lookahead=0, quirk_gain=True),
-    dict(lookahead=4, fetch="windows", voice_buckets="off",
-         ratio_ladder="off"),
+    dict(lookahead=4, fetch="windows", voice_buckets="off"),
     dict(lookahead=4, host_core="numpy"),
     dict(lookahead=2, block_frames=256),
 ]
@@ -697,8 +688,8 @@ def test_configuration_graphs_equal_eager(opts):
     ("gather", "float32"), ("gather", "int16"),
     ("windows", "float32"), ("windows", "int16")])
 def test_graph_keys_name_the_bank(fetch, bank_dtype):
-    """A key carries the device bank's shape, dtype and layout (planar for
-    the windows fetch, interleaved for the gather)."""
+    """A key carries the device bank's shape and dtype; the layout (planar
+    for the windows fetch, interleaved for the gather) is in the shape."""
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
                       fetch=fetch, bank_dtype=bank_dtype)
     ClipAudioSource(eng, audio=_tone(0.1, 300.0))
@@ -708,8 +699,102 @@ def test_graph_keys_name_the_bank(fetch, bank_dtype):
     assert bank.shape == ((2, eng.bank.capacity_frames) if layout == "planar"
                           else (eng.bank.capacity_frames, 2))
     assert {k.bank for k in eng._graphs.keys()} == {
-        (tuple(bank.shape), str(bank.dtype), layout)}
+        (tuple(bank.shape), str(bank.dtype))}
     assert str(bank.dtype) == f"torch.{bank_dtype}"
+
+
+def test_graph_key_holds_only_what_varies():
+    """A key is (kind, voices, fetch, bank): a warmed horizon engine's keys
+    carry the bank's (shape, dtype) and none of the engine's constants (H,
+    quirk_gain, the bank's layout, the pitch envelope)."""
+    assert graphs_mod.GraphKey._fields == ("kind", "voices", "fetch", "bank")
+    eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
+                      lookahead=4, fetch="windows", max_pitch_ratio=3.0)
+    ClipAudioSource(eng, audio=_tone(0.1, 300.0))
+    eng.warmup()
+    (bank,) = eng._device_sound_data.values()
+    keys = eng._graphs.keys()
+    assert {k.bank for k in keys} == {(tuple(bank.shape), str(bank.dtype))}
+    kinds = ("block", "horizon")
+    assert {(k.kind, k.voices, k.fetch) for k in keys} == {
+        (kind, n, "windows") for kind in kinds for n in (64, 128)} | {
+        (kind, V, "gather") for kind in kinds}
+    for k in keys:
+        assert 4 not in k and 3.0 not in k and "planar" not in k.bank
+
+
+@pytest.mark.parametrize("suffix", ["", ":grid", ":default,c64", ":g16,loop"])
+def test_windows_suffix_is_one_engine(suffix):
+    """A windows suffix only steers the reference's TPU schedule: an engine
+    built with any valid one is a "windows" engine, warms the same graph
+    keys as the plain "windows" engine and renders its bits."""
+    engines = []
+    for fetch in ("windows", "windows" + suffix):
+        eng = AudioEngine("cpu", sample_rate=SR, block_frames=B,
+                          num_voices=V, lookahead=4, fetch=fetch)
+        clip = ClipAudioSource(eng, audio=_tone(0.2, 300.0))
+        eng.start_transport(bpm=120)
+        eng.warmup()
+        for i, note in enumerate((60, 67, 79)):
+            eng.schedule_clip_command(
+                _command(ClipCommand, clip.id, note, i), 0)
+        engines.append(eng)
+    plain, other = engines
+    assert other.fetch == "windows"
+    (bank,) = other._device_sound_data.values()
+    bank = (tuple(bank.shape), str(bank.dtype))
+    want = {graphs_mod.GraphKey(kind, n, "windows", bank)
+            for kind in ("block", "horizon") for n in (64, 128)}
+    want |= {graphs_mod.GraphKey(kind, V, "gather", bank)
+             for kind in ("block", "horizon")}
+    assert set(other._graphs.keys()) == set(plain._graphs.keys()) == want
+    for b in range(12):
+        want = plain.process_block().outputs
+        got = other.process_block().outputs
+        for field in RenderOutputs._fields:
+            np.testing.assert_array_equal(
+                getattr(got, field).numpy(), getattr(want, field).numpy(),
+                err_msg=f"block {b} {field}")
+    for eng in engines:
+        eng.drain_speculation()
+    assert other.fetch_dispatches["windows"] > 0
+    assert other.stats()["late_captures"] == 0
+
+
+@pytest.mark.parametrize("lookahead", [0, 4])
+def test_over_envelope_renders_the_full_pool(lookahead):
+    """A sparse session whose pitch leaves the envelope renders the whole
+    pool through the gather fetch (the fallback's one bucket), and back at
+    the smallest bucket through windows once the note stops: both keys
+    were warmed, so neither is a late capture."""
+    eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=V,
+                      lookahead=lookahead, fetch="windows")
+    clip = ClipAudioSource(eng, audio=_tone(0.3, 300.0))
+    eng.start_transport(bpm=120)
+    eng.warmup()
+    seen = []
+    real = eng._render
+
+    def spy(kind, fetch, prog, *a, **k):
+        seen.append((fetch, prog.shape[0]))
+        return real(kind, fetch, prog, *a, **k)
+
+    eng._render = spy
+    eng.schedule_clip_command(_command(ClipCommand, clip.id, 86, 0), 0)
+    for _ in range(6):
+        eng.process_block()
+    eng.drain_speculation()
+    assert set(seen) == {("gather", V)}
+    seen.clear()
+    eng.schedule_clip_command(
+        _command(ClipCommand, clip.id, 86, 0, stop=True), 0)
+    eng.schedule_clip_command(_command(ClipCommand, clip.id, 67, 1), 0)
+    # the stopped voice's release ends within 20 blocks
+    for _ in range(30):
+        eng.process_block()
+    eng.drain_speculation()
+    assert ("windows", 64) in seen and ("gather", 64) not in seen
+    assert eng.stats()["late_captures"] == 0
 
 
 @pytest.mark.parametrize("render_graphs", ["auto", "off"])

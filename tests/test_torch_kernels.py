@@ -214,7 +214,7 @@ def test_engine_on_card_matches_cpu(B):
     from libzl_tpu_torch.engine.engine import AudioEngine
 
     V = 64
-    per_block = dict(lookahead=0, voice_buckets="off", ratio_ladder="off")
+    per_block = dict(lookahead=0, voice_buckets="off")
     gpu = AudioEngine("cuda", block_frames=B, num_voices=V, **per_block)
     cpu = AudioEngine("cpu", block_frames=B, num_voices=V, **per_block)
     assert gpu.fetch == "windows"
@@ -587,7 +587,7 @@ def test_mixdown_kernel_refuses_what_it_does_not_take():
 @pytest.mark.parametrize("B", sorted(chip_smoke.CARD_LOOKAHEAD))
 def test_card_defaults_resolve_as_measured(B):
     """On a card "auto" resolves as the sweep decided (PERF.md §5): the
-    engine's lookahead and ratio ladder, the bridge's bounce drain."""
+    engine's lookahead, the bridge's bounce drain."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the card's defaults")
     from libzl_tpu_torch.capi.bridge import EngineRuntime
@@ -596,8 +596,6 @@ def test_card_defaults_resolve_as_measured(B):
     e = AudioEngine("cuda", block_frames=B, num_voices=64)
     assert e.fetch == "windows"
     assert e._lookahead == chip_smoke.CARD_LOOKAHEAD[B]
-    assert e._ratio_ladder == chip_smoke.CARD_LADDER
-    assert e._allowed_rungs(None) == chip_smoke.CARD_LADDER
     rt = EngineRuntime(block_frames=B, num_voices=64, device="cuda")
     assert rt.bounce_drain_blocks == chip_smoke.CARD_DRAIN
     assert rt.engine._lookahead == chip_smoke.CARD_LOOKAHEAD[B]
@@ -1051,7 +1049,7 @@ def test_engine_on_card_at_a_large_block_matches_cpu():
     V, B = 64, 10240
     assert bq_extra_resets(B, 48000) == 67
     opts = dict(block_frames=B, num_voices=V, lookahead=0,
-                voice_buckets="off", ratio_ladder="off")
+                voice_buckets="off")
     gpu, cpu = AudioEngine("cuda", **opts), AudioEngine("cpu", **opts)
     for e in (gpu, cpu):
         chip_smoke.build_session(e, num_voices=V, num_clips=8)

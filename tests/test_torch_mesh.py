@@ -314,8 +314,7 @@ def test_mesh_bucket_ladder():
 
 @pytest.mark.parametrize("n,V", [(4, 256), (8, 128), (16, 128)])
 def test_options_resolve_as_the_reference_mesh(n, V):
-    """The ladder unit is max(mesh.size * 8, 8) and the rung prune judges
-    the per-shard voice count, as in the reference."""
+    """The ladder unit is max(mesh.size * 8, 8), as in the reference."""
     eng = port(cpu_mesh(n), num_voices=V, fetch="windows")
     ref = RefEngine(sample_rate=SR, backend="jax", num_voices=V,
                     mesh=ref_make_mesh(min(n, 8)) if n <= 8 else None,
@@ -325,20 +324,15 @@ def test_options_resolve_as_the_reference_mesh(n, V):
     unit = max(n * 8, 8)
     if eng._bucket_ladder is not None:
         assert all(s % unit == 0 or s == V for s in eng._bucket_ladder)
-    eng.RUNG_MIN_SHARD_VOICES = V // n
-    assert eng._allowed_rungs(V) == [2.0, 4.0]
-    assert eng._allowed_rungs(V // 2) == [4.0]
 
 
 def test_dryrun_multichip_equivalent():
     """__graft_entry__.dryrun_multichip's engine assertions on an 8-shard
-    CPU mesh: the windows fetch per shard, lookahead 4, the ratio ladder
-    dispatched at both rungs (a high note mid-session), a horizon engaged,
+    CPU mesh: the windows fetch per shard, lookahead 4, every render at
+    the one envelope (a high note mid-session too), a horizon engaged,
     the bucket ladder engaged on a sparse pool, and emits."""
     eng = port(cpu_mesh(8), num_voices=128, fetch="windows", lookahead=4,
                block_frames=128)
-    assert eng._ratio_ladder == [2.0, 4.0]
-    eng.RUNG_MIN_SHARD_VOICES = 8
     t = np.arange(4096) / SR
     clip = ClipAudioSource(eng, audio=AudioData(
         (0.4 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)[:, None], SR))
@@ -361,7 +355,7 @@ def test_dryrun_multichip_equivalent():
         for i in range(24):
             if i == 12:
                 cmd = ClipCommand.channel(clip.id, 1)
-                cmd.midi_note = 84              # ratio 4.0: the top rung
+                cmd.midi_note = 84              # ratio 4.0: the envelope
                 cmd.change_volume = True
                 cmd.volume = 1.0
                 cmd.start_playback = True
@@ -378,7 +372,7 @@ def test_dryrun_multichip_equivalent():
     assert np.isfinite(master).all() and np.abs(master).max() > 0
     assert horizon_blocks > 0
     assert "horizon" in {k for k, _, _ in calls}
-    assert {r for _, r, _ in calls} == {2.0, 4.0}
+    assert {r for _, r, _ in calls} == {4.0}
     assert min(n for _, _, n in calls) < 128      # a prefix bucket
     assert "emit" in kinds
     assert eng.stats()["spec_failures"] == 0

@@ -191,24 +191,22 @@ def test_chained_graphs_match_unsharded(k, lookahead, unsharded):
 
 
 def _reference_mesh_work(monkeypatch, kw, k) -> tuple:
-    """(warmed_graphs, the set of (kind, voices, fetch, rmax) renders) of
-    the reference engine's warmup on make_mesh(k), its shard_map renders
-    spied."""
-    kw = dict(kw)
-    rungs = kw.pop("rungs", False)
+    """(warmed_graphs, the set of (kind, voices, fetch) renders) of the
+    reference engine's warmup on make_mesh(k), its shard_map renders
+    spied; every render at the one envelope (at 64 voices the reference's
+    ladder keeps its top rung alone)."""
     ref = RefEngine(sample_rate=SR, backend="jax", block_frames=B,
                     num_voices=64, host_core="numpy", mesh=ref_make_mesh(k),
                     **kw)
-    if rungs:
-        ref.RUNG_MIN_SHARD_VOICES = 64 // k
     calls = set()
 
-    def mesh_render(kind, rmax):
-        fetch = ref.fetch if rmax is not None else "gather"
-        r = rmax if rmax is not None else ref.max_pitch_ratio
+    def mesh_render(kind, ratio):
+        # None: the over-envelope gather fallback
+        assert ratio in (None, ref.max_pitch_ratio)
+        fetch = ref.fetch if ratio is not None else "gather"
 
         def render(sound, prog, strips):
-            calls.add((kind, prog.shape[0], fetch, float(r)))
+            calls.add((kind, prog.shape[0], fetch))
             out = types.SimpleNamespace(master=np.zeros((B, 2), np.float32))
             return out if kind == "block" else (out,)
         return render
@@ -221,22 +219,17 @@ def _reference_mesh_work(monkeypatch, kw, k) -> tuple:
     {"lookahead": 0},
     {"lookahead": 4},
     {"lookahead": 0, "fetch": "windows"},
-    {"lookahead": 4, "fetch": "windows", "rungs": True},
-], ids=["per-block", "lookahead", "windows", "windows-lookahead-rungs"])
+], ids=["per-block", "lookahead", "windows"])
 def test_mesh_warmup_captures_the_reference_work_list(monkeypatch, kw):
     """warmup() on a 2-shard mesh captures one graph a item of the
     reference's mesh work list, and nothing more."""
     want_n, want = _reference_mesh_work(monkeypatch, kw, 2)
-    kw = dict(kw)
-    rungs = kw.pop("rungs", False)
     eng = AudioEngine("cpu", sample_rate=SR, block_frames=B, num_voices=64,
                       mesh=make_mesh(devices=["cpu"] * 2), **kw)
-    if rungs:
-        eng.RUNG_MIN_SHARD_VOICES = 32
     ClipAudioSource(eng, audio=_tone(0.25, 220.0))
     assert eng.warmup() == want_n
     keys = eng._graphs.keys()
-    assert {(g.kind, g.voices, g.fetch, g.rmax) for g in keys} == want
+    assert {(g.kind, g.voices, g.fetch) for g in keys} == want
     assert len(keys) == want_n
     stats = eng.stats()
     assert stats["warmed_graphs"] == stats["graphs"] == want_n
@@ -301,8 +294,8 @@ def test_chain_capture_failure_raises_and_keeps_no_graph():
     g = graphs_mod.RenderGraphs(cpu, [(cpu, 0, 1), (cpu, 1, 1)])
     bound = object()
     g.rebind(bound)
-    key = graphs_mod.GraphKey("block", 4, "windows", 4.0, 1, False,
-                              ((2, 64), "torch.float32", "planar"))
+    key = graphs_mod.GraphKey("block", 4, "windows",
+                              ((2, 64), "torch.float32"))
     with pytest.raises(RuntimeError, match="render failed"):
         g.render(key, Broken(), np.zeros((4, 3), np.int32), bound)
     assert len(g) == 0 and g.captures == 0
@@ -351,8 +344,8 @@ def test_chain_replays_from_many_threads():
     g = graphs_mod.RenderGraphs(cpu, [(cpu, i, 1) for i in range(4)])
     bound = object()
     g.rebind(bound)
-    key = graphs_mod.GraphKey("block", 8, "windows", 4.0, 1, False,
-                              ((2, 64), "torch.float32", "planar"))
+    key = graphs_mod.GraphKey("block", 8, "windows",
+                              ((2, 64), "torch.float32"))
     steps = _Steps()
     base = np.arange(24, dtype=np.int32).reshape(8, 3)
     g.render(key, steps, base, bound)

@@ -2,7 +2,7 @@
 
 "auto" resolves on "cuda" by the rules measured on an H100 (PERF.md §5,
 `chip_smoke.py --policy-only`): the lookahead H by `_card_lookahead`, the
-ratio ladder and the bridge's bounce drain by their resolvers. On the CPU
+bridge's bounce drain by its resolver. On the CPU
 every option resolves as the reference's jax engine and bridge do. A
 horizon is bit-equal to the per-block path, so each H the card's rule can
 return is run here against the same engine at lookahead=0.
@@ -15,8 +15,7 @@ from libzl_tpu.engine.engine import AudioEngine as RefEngine
 from libzl_tpu_torch.capi.bridge import resolve_bounce_drain
 from libzl_tpu_torch.engine import engine as engine_mod
 from libzl_tpu_torch.engine.commands import ClipCommand
-from libzl_tpu_torch.engine.engine import (
-    AudioEngine, resolve_lookahead, resolve_ratio_ladder)
+from libzl_tpu_torch.engine.engine import AudioEngine, resolve_lookahead
 from libzl_tpu_torch.engine.graphs import DISPATCH_SPANS
 from libzl_tpu_torch.io.wav import AudioData
 from libzl_tpu_torch.models.clip import ClipAudioSource
@@ -27,7 +26,6 @@ SR = 48000
 # 256 and 1024; elsewhere the nearer measured B on a log scale)
 CARD_LOOKAHEAD = {32: 16, 64: 16, 128: 16, 256: 0, 512: 0, 1024: 0,
                   2048: 0, 4096: 0, 10240: 0, 16512: 0}
-CARD_LADDER = [4.0]
 CARD_DRAIN = 64
 
 
@@ -51,7 +49,6 @@ def test_card_table_matches_what_chip_smoke_checks_on_the_card():
 
     for B, H in chip_smoke.CARD_LOOKAHEAD.items():
         assert resolve_lookahead("auto", B, "cuda") == H
-    assert chip_smoke.CARD_LADDER == CARD_LADDER
     assert chip_smoke.CARD_DRAIN == CARD_DRAIN
 
 
@@ -83,20 +80,6 @@ def test_explicit_lookahead_is_taken_as_given(device, value, want):
     ("16", "cpu", 16), (0, "cuda", 1), (64, "cpu", 64)])
 def test_bounce_drain_resolution(value, device, want):
     assert resolve_bounce_drain(value, device) == want
-
-
-@pytest.mark.parametrize("args,want", [
-    (("auto", "windows", 4.0, "cuda"), CARD_LADDER),
-    (("auto", "windows:g4s", 4.0, "cuda"), CARD_LADDER),
-    (("auto", "windows", 4.0, "cpu"), [2.0, 4.0]),
-    (("off", "windows", 4.0, "cpu"), [4.0]),
-    (("off", "windows", 4.0, "cuda"), [4.0]),
-    (("auto", "gather", 4.0, "cpu"), [4.0]),
-    (("auto", "windows", 2.0, "cpu"), [2.0]),
-    (("auto", "windows", 3.0, "cuda"), [3.0] if CARD_LADDER == [4.0]
-     else [2.0, 3.0])])
-def test_ratio_ladder_resolution(args, want):
-    assert resolve_ratio_ladder(*args) == want
 
 
 def _tone(seconds=0.5, freq=220.0):

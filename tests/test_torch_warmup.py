@@ -290,8 +290,8 @@ def test_warm_restages_the_last_program_from_both_slots():
     g = graphs_mod.RenderGraphs("cpu")
     bound = object()
     g.rebind(bound)
-    key = graphs_mod.GraphKey("block", 4, "windows", 4.0, 1, False,
-                              ((2, 64), "torch.float32", "planar"))
+    key = graphs_mod.GraphKey("block", 4, "windows",
+                              ((2, 64), "torch.float32"))
     prog = np.arange(12, dtype=np.int32).reshape(4, 3)
     out, captured = g.render(key, _fake_render, prog, bound)
     assert captured
@@ -320,8 +320,8 @@ def test_warm_launches_count_what_no_dispatch_made():
     g = graphs_mod.RenderGraphs("cpu")
     bound = object()
     g.rebind(bound)
-    key = graphs_mod.GraphKey("block", 4, "windows", 4.0, 1, False,
-                              ((2, 64), "torch.float32", "planar"))
+    key = graphs_mod.GraphKey("block", 4, "windows",
+                              ((2, 64), "torch.float32"))
     prog = np.arange(12, dtype=np.int32).reshape(4, 3)
     f0, m0 = fw.fetch_interp.launches, md.lane_mixdown.launches
     g.render(key, _fake_render, prog, bound)          # a dispatch
