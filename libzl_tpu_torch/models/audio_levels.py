@@ -16,8 +16,10 @@ accumulation, decay cadence and dBFS outputs, and owns the disk recorders:
 Channel index map (reference ordering, lib/AudioLevels.cpp:347-412):
 0 = capture, 1 = playback (with peak-hold), 2 = recorder, 3..12 = channels.
 
-A copy of libzl_tpu/models/audio_levels.py, verbatim apart from this note:
-the port keeps its own copy so that it imports nothing of the JAX package.
+The model of libzl_tpu/models/audio_levels.py, with the same values: the
+block fold and the analysis pass convert every meter to dBFS in array
+operations (ops/meters.to_dbfs, add_dbfs), bit-equal to the
+reference's value-by-value conversion.
 """
 
 from __future__ import annotations
@@ -119,18 +121,20 @@ class AudioLevels:
         else:
             lane_peaks = np.asarray(outputs.lane_peaks)   # [12, 2]
             master_peak = np.asarray(outputs.master_peak)  # [2]
-        ints = np.zeros((NUM_METER_CHANNELS, 2), np.int64)
-        ints[IDX_PLAYBACK] = np.abs(master_peak * PEAK_INT_SCALE).astype(np.int64)
-        ints[IDX_RECORDER] = ints[IDX_PLAYBACK]
-        # sketchpad channels sit on lanes 2..11 (constants.channel_to_lane)
-        ints[IDX_FIRST_CHANNEL:] = np.abs(
-            lane_peaks[2 : 2 + NUM_TRACKS] * PEAK_INT_SCALE
-        ).astype(np.int64)
-        self._peak_int = np.maximum(self._peak_int, ints)
+        # every slot but the capture's: playback, recorder (both the
+        # master) and the channels, which sit on lanes 2..11
+        # (constants.channel_to_lane); the scale is a power of two, so
+        # the product is exact in either precision
+        src = np.empty((NUM_METER_CHANNELS - 1, 2))
+        src[IDX_PLAYBACK - 1] = src[IDX_RECORDER - 1] = master_peak
+        src[IDX_FIRST_CHANNEL - 1:] = lane_peaks[2 : 2 + NUM_TRACKS]
+        ints = np.abs(src * PEAK_INT_SCALE).astype(np.int64)
+        np.maximum(self._peak_int[1:], ints, out=self._peak_int[1:])
         lane_rms = (rms_override if rms_override is not None
                     else np.asarray(outputs.lane_rms))
-        track_rms = lane_rms[2 : 2 + NUM_TRACKS].max(axis=1)
-        self.channels_rms = [to_dbfs(float(v)) for v in track_rms]
+        track = lane_rms[2 : 2 + NUM_TRACKS]
+        self.channels_rms = to_dbfs(
+            np.maximum(track[:, 0], track[:, 1])).tolist()
 
     def analyze(self) -> None:
         """The 50 ms analysis pass (lib/AudioLevels.cpp:347-412): convert
@@ -142,29 +146,21 @@ class AudioLevels:
         below ~-22 dBFS at the floor."""
         peaks = self._peak_int.astype(np.float64) * PEAK_INT_TO_FLOAT
         self._peak_int = np.maximum(self._peak_int - PEAK_INT_DECAY_PER_TICK, 0)
-        db = np.array(
-            [[to_dbfs(p) for p in row] for row in peaks], np.float64
-        )
-        self.capture_a, self.capture_b = db[IDX_CAPTURE]
-        self.playback_a, self.playback_b = db[IDX_PLAYBACK]
-        self.playback = add_dbfs(self.playback_a, self.playback_b)
-        pa, pb = peaks[IDX_PLAYBACK]
-        self._hold_signal[0] = (
-            pa if pa >= self._hold_signal[0]
-            else self._hold_signal[0] * PEAK_HOLD_DECAY
-        )
-        self._hold_signal[1] = (
-            pb if pb >= self._hold_signal[1]
-            else self._hold_signal[1] * PEAK_HOLD_DECAY
-        )
-        self.playback_a_hold = to_dbfs(self._hold_signal[0])
-        self.playback_b_hold = to_dbfs(self._hold_signal[1])
-        self.recording_a, self.recording_b = db[IDX_RECORDER]
-        for i in range(NUM_TRACKS):
-            a, b = db[IDX_FIRST_CHANNEL + i]
-            self.channels_a[i] = a
-            self.channels_b[i] = b
-            self.channels[i] = add_dbfs(a, b)
+        hold = self._hold_signal
+        play = peaks[IDX_PLAYBACK]
+        hold[:] = np.where(play >= hold, play, hold * PEAK_HOLD_DECAY)
+        db = to_dbfs(np.concatenate((peaks, hold[None])))
+        (self.capture_a, self.capture_b), (self.playback_a, self.playback_b), \
+            (self.recording_a, self.recording_b) = db[:3].tolist()
+        self.playback_a_hold, self.playback_b_hold = db[-1].tolist()
+        # the playback pair and the channels' pairs, power-summed at once
+        pairs = db[[IDX_PLAYBACK, *range(IDX_FIRST_CHANNEL,
+                                         IDX_FIRST_CHANNEL + NUM_TRACKS)]]
+        summed = add_dbfs(pairs[:, 0], pairs[:, 1]).tolist()
+        self.playback = summed[0]
+        self.channels_a[:] = pairs[1:, 0].tolist()
+        self.channels_b[:] = pairs[1:, 1].tolist()
+        self.channels[:] = summed[1:]
 
     # ------------------------------------------------------------ recording
 

@@ -146,6 +146,38 @@ def assert_blocks_close(got, want, tag):
                                            err_msg=f"{tag} block {b} {name}")
 
 
+def test_session_update_counters():
+    """stats()' session_updates counts update_session's passes and
+    session_clip_visits the clips that entered Python in them: none without
+    callbacks; with a callback on two clips (one kind each) one a callback
+    fired; and one more for a clip whose orphaned position is reaped."""
+    engine = AudioEngine("cpu", block_frames=128, num_voices=V, **PER_BLOCK)
+    now = [100.0]
+    engine.feedback.clock = lambda: now[0]
+    clips = start_session(engine)
+
+    def updates(n):
+        for _ in range(n):
+            now[0] += 0.05
+            engine.update_session(engine.process_block())
+        s = engine.stats()
+        return s["session_updates"], s["session_clip_visits"]
+
+    assert updates(12) == (12, 0)
+    fired = []
+    clips[0].progress_callback = lambda v: fired.append(("progress", v))
+    clips[1].audio_level_callback = lambda v: fired.append(("level", v))
+    assert updates(12) == (24, len(fired))
+    assert {kind for kind, _ in fired} == {"progress", "level"}
+    clips[3].positions_model.create_position(10**6)
+    before = len(fired)
+    now[0] += 1.5
+    n, visits = updates(1)
+    assert 10**6 not in clips[3].positions_model._rows
+    assert (n, visits) == (25, len(fired) + 1)
+    assert len(fired) > before
+
+
 @pytest.mark.parametrize("B,host_core", [(128, "auto"), (1024, "auto"),
                                          (128, "numpy")])
 def test_engine_matches_reference_numpy_and_jax(B, host_core):

@@ -5,10 +5,11 @@ libzl_tpu_torch keeps a copy of every JAX-free host module it runs
 (constants, timebase, the voice pool, host core binding, scheduler, clip,
 MIDI, I/O and profiling modules), so that it imports nothing of the JAX
 package. Host code is held bit-equal: the copies' source must parse to the
-reference's (docstrings aside), and the voice pool's program and advance, the
-native host core, the scheduler's step ring, WAV round trips, the clip
-model's positions and the profiling counters give the reference's values
-exactly. The one tolerance is the reference's own for the native host core
+reference's (docstrings aside; the reworked session models differ only in
+the definitions REWORKED names), and the voice pool's program and advance,
+the native host core, the scheduler's step ring, WAV round trips, the clip
+model's positions, the session update and the profiling counters give the
+reference's values exactly. The one tolerance is the reference's own for the native host core
 against the numpy advance (exp2 may differ by an ulp between libm and numpy,
 tests/test_hostcore.py). Every reference engine or pool here uses the numpy
 program builder: no test of the port builds the reference's native/
@@ -19,6 +20,7 @@ import ast
 import copy
 import dataclasses
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,7 +29,9 @@ import __graft_entry__ as graft
 from libzl_tpu.engine import commands as ref_commands
 from libzl_tpu.engine import scheduler as ref_scheduler
 from libzl_tpu.engine import voicestate as ref_voicestate
+from libzl_tpu.engine.engine import AudioEngine as RefEngine
 from libzl_tpu.io import wav as ref_wav
+from libzl_tpu.models import audio_levels as ref_levels
 from libzl_tpu.models import clip as ref_clip
 from libzl_tpu.models import positions as ref_positions
 from libzl_tpu.ops import voice as ref_voice
@@ -36,17 +40,20 @@ from libzl_tpu_torch.engine import commands as port_commands
 from libzl_tpu_torch.engine import hostcore as port_hostcore
 from libzl_tpu_torch.engine import scheduler as port_scheduler
 from libzl_tpu_torch.engine import voicestate as port_voicestate
+from libzl_tpu_torch.engine.engine import AudioEngine as PortEngine
 from libzl_tpu_torch.io import wav as port_wav
+from libzl_tpu_torch.models import audio_levels as port_levels
 from libzl_tpu_torch.models import clip as port_clip
 from libzl_tpu_torch.models import positions as port_positions
+from libzl_tpu_torch.models.feedback import FeedbackTable
 from libzl_tpu_torch.ops import voice as port_voice
 from libzl_tpu_torch.utils import profiling as port_profiling
 
 REPO = Path(__file__).resolve().parent.parent
 SR = 48000.0
 
-# modules copied verbatim: the same source as the reference's, docstrings
-# aside
+# modules copied from the reference: the same source as the reference's,
+# docstrings aside, but for REWORKED's definitions
 VERBATIM = [
     "constants.py", "timebase.py", "engine/commands.py",
     "engine/scheduler.py", "engine/allocator.py", "engine/soundbank.py",
@@ -59,7 +66,7 @@ VERBATIM = [
 ]
 
 
-def _source_without_docstrings(path: Path) -> str:
+def _tree_without_docstrings(path: Path) -> ast.Module:
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -67,18 +74,65 @@ def _source_without_docstrings(path: Path) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             body[0] = ast.Pass()
-    return ast.dump(tree)
+    return tree
+
+
+def _source_without_docstrings(path: Path) -> str:
+    return ast.dump(_tree_without_docstrings(path))
+
+
+# copies the port reworked: the reference's module but for these
+# definitions (added, changed or gone), which keep the reference's values
+# in another form: the session feedback in one table
+# (test_session_update_bit_equal)
+REWORKED = {
+    "models/positions.py": ["PlaybackPosition", "PositionsModel"],
+    "models/clip.py": ["ClipAudioSource", "LEVEL_DECAY", "LEVEL_THROTTLE_S",
+                       "PROGRESS_THROTTLE_S", "_row_field"],
+    "models/audio_levels.py": ["AudioLevels"],
+}
+
+
+def _definitions(path: Path) -> dict:
+    """name -> dumped source (docstrings aside) of each top-level function,
+    class and assignment of a module; its other statements in order under
+    None, imports left out."""
+    out, rest = {}, []
+    for node in _tree_without_docstrings(path).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            continue
+        name = getattr(node, "name", None)
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name = getattr(node.targets[0], "id", None)
+        elif isinstance(node, ast.AnnAssign):
+            name = getattr(node.target, "id", None)
+        if name is None:
+            rest.append(ast.dump(node))
+        else:
+            out[name] = ast.dump(node)
+    out[None] = rest
+    return out
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copy_is_the_reference_source(rel):
     """A verbatim copy parses to the reference module, docstrings aside,
-    and its docstring names the file it copies."""
+    and its docstring names the file it copies; a reworked one differs
+    from the reference only in the definitions REWORKED names, and its
+    docstring names the reference's file."""
     port = REPO / "libzl_tpu_torch" / rel
+    ref = REPO / "libzl_tpu" / rel
+    doc = ast.get_docstring(ast.parse(port.read_text())).replace("\n", " ")
+    if rel in REWORKED:
+        got, want = _definitions(port), _definitions(ref)
+        assert sorted(k for k in got.keys() | want.keys() if k is not None
+                      and got.get(k) != want.get(k)) == sorted(REWORKED[rel])
+        assert got[None] == want[None]
+        assert f"libzl_tpu/{rel}" in doc
+        return
     assert _source_without_docstrings(port) == _source_without_docstrings(
-        REPO / "libzl_tpu" / rel)
-    assert f"A copy of libzl_tpu/{rel}" in ast.get_docstring(
-        ast.parse(port.read_text())).replace("\n", " ")
+        ref)
+    assert f"A copy of libzl_tpu/{rel}" in doc
 
 
 def _top_level(path: Path) -> dict:
@@ -371,6 +425,244 @@ def test_clip_positions_bit_equal(monkeypatch):
                                     port_positions)
     assert got == want
     np.testing.assert_array_equal(got_pb, want_pb)
+
+
+# ------------------------------------------------------ the session update
+
+# name -> clips, voices, and what the session does between updates:
+# `churn` (a share of voices dies and as many notes start each update),
+# `orphans` (positions made through the models' API, never updated, and a
+# clock jump past the orphan timeout), `remove` (a clip unregistered, its
+# voices left playing, and a clip registered with a position made before),
+# `bucket` (voice peaks shorter than the pool, padded), `listen` (listeners
+# and callbacks on some clips only)
+SESSION_CASES = {
+    "one_clip": dict(clips=1, voices=4),
+    "clips64_voices96": dict(clips=64, voices=96, listen=(3, 17, 40)),
+    "position_count": dict(clips=1, voices=40, listen=(0,)),
+    "orphans": dict(clips=4, voices=8, orphans=True, listen=(1,)),
+    "listeners_some_clips": dict(clips=8, voices=16, listen=(1, 4, 6)),
+    "clip_removed": dict(clips=6, voices=16, remove=True, listen=(2, 3)),
+    "bucket_peaks": dict(clips=8, voices=32, bucket=12),
+    "notes_churn": dict(clips=8, voices=24, churn=0.3, listen=(0, 5)),
+}
+
+
+def _bits(x):
+    """Floats as their bits (hex), through lists, tuples and dicts."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_bits(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _bits(v) for k, v in x.items()}
+    if isinstance(x, (float, np.floating)):
+        return float(x).hex()
+    return x
+
+
+class _SessionSide:
+    """One package's clips, meters and the engine state update_session
+    reads, under an injected clock."""
+
+    def __init__(self, port: bool, clock):
+        self.port, self.clock = port, clock
+        self.clip_mod = port_clip if port else ref_clip
+        self.wav_mod = port_wav if port else ref_wav
+        self.update = (PortEngine if port else RefEngine).update_session
+        self.engine = SimpleNamespace(
+            clips={}, total_blocks=0, _levels_every=2,
+            _last_analyze_block=-(10**9))
+        self.engine.levels = (port_levels if port else ref_levels).AudioLevels(
+            self.engine)
+        if port:
+            # small to start with: the session grows both parts
+            self.engine.feedback = FeedbackTable(4, clips=2, clock=clock)
+        self.all = []      # every clip made, registered or not
+        self.fired = []    # (clip index, kind, value) in firing order
+
+    def make_clip(self, audio: np.ndarray) -> None:
+        clip = self.clip_mod.ClipAudioSource(
+            None, audio=self.wav_mod.AudioData(audio, 48000))
+        if self.port:
+            clip.positions_model._table.clock = self.clock
+        else:
+            clip.positions_model._clock = self.clock
+        self.all.append(clip)
+
+    def register(self, i: int) -> None:
+        clip = self.all[i]
+        self.engine.clips[clip.id] = clip
+        if self.port:
+            self.engine.feedback.attach(clip)
+
+    def unregister(self, i: int) -> None:
+        clip = self.all[i]
+        del self.engine.clips[clip.id]
+        if self.port:
+            self.engine.feedback.detach(clip)
+
+    def listen(self, i: int) -> None:
+        clip, fired = self.all[i], self.fired
+        m = clip.positions_model
+        m.on_peak_gain_changed = lambda v: fired.append((i, "peak", v))
+        m.on_first_progress_changed = lambda v: fired.append((i, "first", v))
+        if i % 2 == 0:
+            clip.progress_callback = lambda v: fired.append((i, "progress", v))
+        if i % 3 != 1:
+            clip.audio_level_callback = lambda v: fired.append((i, "level", v))
+
+    def positions(self, i: int) -> list:
+        m = self.all[i].positions_model
+        if self.port:
+            t = m._table
+            return [(pid, t.gain[r], t.progress[r], t.updated[r])
+                    for pid, r in m._rows.items()]
+        return [(pid, p.gain, p.progress, p.last_updated)
+                for pid, p in m._positions.items()]
+
+    def step(self, pool: dict, fetched: dict) -> list:
+        ids = np.array([c.id for c in self.all] + [-1])
+        self.engine.pool = SimpleNamespace(
+            num_voices=pool["active"].size, active=pool["active"],
+            clip_id=ids[pool["clip"]], position_id=pool["pid"],
+            progress=lambda: pool["progress"])
+        before = [{p[0] for p in self.positions(i)}
+                  for i in range(len(self.all))]
+        self.engine.total_blocks += 1
+        self.update(self.engine, SimpleNamespace(outputs=None),
+                    include_recorders=False,
+                    fetched={k: v.copy() for k, v in fetched.items()})
+        out = []
+        for i, clip in enumerate(self.all):
+            m = clip.positions_model
+            pos = self.positions(i)
+            out.append(dict(
+                positions=pos, reaped=sorted(before[i] - {p[0] for p in pos}),
+                peak=m.peak_gain(), first=m.first_progress(), n=len(m),
+                level=clip.audio_level, progress=clip._last_progress,
+                signal=clip._level_signal,
+                due=(clip._next_progress_time, clip._next_level_time)))
+        lv = self.engine.levels
+        out.append({k: getattr(lv, k) for k in (
+            "channels", "channels_a", "channels_b", "channels_rms",
+            "playback", "playback_a", "playback_b", "playback_a_hold",
+            "playback_b_hold", "capture_a", "capture_b", "recording_a",
+            "recording_b")})
+        out.append(list(self.fired))
+        self.fired.clear()
+        return _bits(out)
+
+
+@pytest.mark.parametrize("case", list(SESSION_CASES))
+def test_session_update_bit_equal(case, monkeypatch):
+    """The port's session update (one pass over the feedback table) and
+    the reference's per-clip loop of update_session over its positions,
+    clip and meter models, on the same voices, peaks and clock: every
+    position's gain, progress and update time, the reaped ids, each clip's
+    peak gain, first progress, level and published progress, the meters,
+    and the ordered (clip, kind, value) list of fired listeners and
+    callbacks, bit for bit."""
+    spec = SESSION_CASES[case]
+    rng = np.random.default_rng(sorted(SESSION_CASES).index(case))
+    now = [1000.0]
+    clock = lambda: now[0]  # noqa: E731
+    monkeypatch.setattr(ref_clip, "time", SimpleNamespace(monotonic=clock))
+    n_clips, V = spec["clips"], spec["voices"]
+    sides = [_SessionSide(port, clock) for port in (False, True)]
+    audio = [rng.uniform(-0.5, 0.5, (int(rng.integers(600, 3000)), 2))
+             .astype(np.float32) for _ in range(n_clips + 1)]
+    for side in sides:
+        for a in audio[:n_clips]:
+            side.make_clip(a)
+        for i in range(n_clips):
+            side.register(i)
+            if i % 3 == 1:
+                side.all[i].set_start_position(0.004 * i)
+        for i in spec.get("listen", ()):
+            side.listen(i)
+    registered = set(range(n_clips))
+    pool = dict(active=np.zeros(V, bool), clip=np.full(V, n_clips + 1),
+                pid=np.full(V, -1, np.int64), progress=np.zeros(V))
+    next_pid = [0]
+
+    def start(v: int) -> None:
+        i = int(rng.choice(sorted(registered)))
+        pid = next_pid[0]
+        next_pid[0] += 1
+        pool["active"][v], pool["clip"][v], pool["pid"][v] = True, i, pid
+        for side in sides:  # the allocator's create_position
+            side.all[i].positions_model.create_position(pid)
+
+    def die(v: int) -> None:
+        i, pid = int(pool["clip"][v]), int(pool["pid"][v])
+        pool["active"][v], pool["pid"][v] = False, -1
+        if i in registered:  # the engine's _release_died
+            for side in sides:
+                side.all[i].positions_model.remove_position(pid)
+
+    for v in range(V):
+        start(v)
+    churn = spec.get("churn", 0.0)
+    lanes = 12
+    played = rng.uniform(0, 1, V)
+    loud = rng.uniform(0.05, 1, V)
+    for step in range(40):
+        now[0] += float(rng.choice([0.004, 0.011, 0.021, 0.033, 0.05]))
+        if step in (20, 33):
+            now[0] += 1.2  # past the orphan timeout
+        if spec.get("orphans"):
+            if step in (2, 9):
+                for k in range(3):
+                    for side in sides:
+                        side.all[k % n_clips].positions_model.create_position(
+                            10_000 + 10 * step + k)
+            if step == 5:
+                for side in sides:  # an id made again keeps its place
+                    side.all[0].positions_model.create_position(10_020)
+                    side.all[1].positions_model.set_gain_and_progress(
+                        10_021, 0.375, 0.5)
+        if spec.get("remove"):
+            if step == 8:
+                registered.discard(2)
+                for side in sides:
+                    side.unregister(2)
+            if step == 15:
+                for side in sides:
+                    side.make_clip(audio[n_clips])
+                    side.all[n_clips].positions_model.create_position(999)
+                    side.register(n_clips)
+                registered.add(n_clips)
+            if step == 22:
+                for side in sides:
+                    side.all[3].set_start_position(0.01)
+        for v in range(V):
+            if churn and pool["active"][v] and rng.random() < churn:
+                die(v)
+            elif churn and not pool["active"][v] and rng.random() < churn:
+                start(v)
+        # playback creeps on by about the progress threshold, or jumps;
+        # peaks drift by about the level threshold, or fall silent
+        played += rng.uniform(0.0, 0.0022, V)
+        jump = rng.random(V) < 0.1
+        played[jump] = rng.uniform(0, 1, np.count_nonzero(jump))
+        played %= 1.0
+        pool["progress"] = np.where(pool["active"], played, 0.0)
+        loud *= np.exp(rng.normal(0.0, 0.012, V))
+        n_peaks = spec.get("bucket", V)
+        peaks = loud[:n_peaks].astype(np.float32)
+        peaks[rng.random(n_peaks) < 0.1] = 0.0
+        if step % 11 == 10:
+            peaks[:] = 0.0  # silence: the levels decay
+        fetched = dict(
+            lane_peaks=rng.uniform(0, 1.2, (lanes, 2)).astype(np.float32),
+            master_peak=rng.uniform(0, 1.2, 2).astype(np.float32),
+            lane_rms=rng.uniform(0, 0.8, (lanes, 2)).astype(np.float32),
+            voice_peaks=peaks)
+        fetched["lane_rms"][rng.random((lanes, 2)) < 0.2] = 0.0
+        want, got = (side.step(pool, fetched) for side in sides)
+        assert got == want, f"step {step}"
+    for side in sides:
+        for clip in side.all:
+            clip.destroy()
 
 
 # -------------------------------------------------------------- profiling
