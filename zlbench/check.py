@@ -1,6 +1,7 @@
 """How `correct` is decided: the master mix the sink received, at blocks the
-seed draws from the window (and, where the traffic plays live notes, blocks
-where notes start and end), against the plain reference's.
+seed draws from the window and blocks where the traffic's events take effect
+(live notes' starts and releases; reloads, with the blocks around them),
+against the plain reference's.
 
 The number compared is `master_gap`: the widest gap between a delivered
 master sample and the reference's, over the sampled blocks, as a share of
@@ -19,19 +20,20 @@ from . import reference
 RANDOM_BLOCKS = 24
 ONSET_BLOCKS = 12
 RELEASE_BLOCKS = 6
+RELOAD_BLOCKS = 4
 KEEP_ONE_IN = 64
 
 
-def keep_rule(seed: int, first: int, events: list):
+def keep_rule(seed: int, first: int, blocks: set):
     """Which delivered blocks the sink keeps for the check, decided before
-    the window: the window's first block, every block where a live note
-    starts or is released, and one block in about KEEP_ONE_IN by a hash
-    of its index salted with the seed."""
+    the window: the window's first block, the `blocks` the event kinds'
+    plans ask for, and one block in about KEEP_ONE_IN by a hash of its
+    index salted with the seed."""
     salt = int(np.random.default_rng([seed, 5]).integers(0, 1 << 32))
-    notes = {e.block for e in events if not getattr(e, "looping", False)}
+    blocks = frozenset(blocks)
 
     def keep(index: int) -> bool:
-        return (index == first or index in notes
+        return (index == first or index in blocks
                 or ((index * 0x9E3779B1 + salt) & 0xFFFFFFFF)
                 % KEEP_ONE_IN == 0)
     return keep
@@ -40,8 +42,10 @@ def keep_rule(seed: int, first: int, events: list):
 def sample_blocks(seed: int, first: int, count: int, events: list,
                   kept) -> list:
     """Window blocks to compare: the first and last, RANDOM_BLOCKS drawn
-    from the seed among the kept ones, and up to ONSET_BLOCKS /
-    RELEASE_BLOCKS of the window's live-note starts and releases."""
+    from the seed among the kept ones, up to ONSET_BLOCKS /
+    RELEASE_BLOCKS of the window's live-note starts and releases, and up
+    to RELOAD_BLOCKS of its reloads, each with the blocks before and after
+    it."""
     rng = np.random.default_rng([seed, 4])
     last = first + count - 1
     picks = {first, last}
@@ -57,23 +61,35 @@ def sample_blocks(seed: int, first: int, count: int, events: list,
         if blocks:
             picks.update(int(b) for b in rng.choice(
                 blocks, min(k, len(blocks)), replace=False))
+    # the block before a reload tells it from one that came a block early,
+    # the reload's own block from one a block late
+    reloads = sorted({e.block for e in events
+                      if isinstance(e, reference.Reload)
+                      and first <= e.block <= last})
+    if reloads:
+        for b in rng.choice(reloads, min(RELOAD_BLOCKS, len(reloads)),
+                            replace=False):
+            picks.update(x for x in range(int(b) - 1, int(b) + 2)
+                         if first <= x <= last)
     return sorted(picks)
 
 
 def reference_masters(config: dict, clips: list, num_voices: int,
                       events: list, blocks: list, device,
                       control: bool = False, work_range=None) -> tuple:
-    """Step the reference pool from block 0 to the last of `blocks` and
-    render each of `blocks` with the bank in float32 and, for the
+    """Step the reference pool from block 0 to the last of `blocks`
+    through `events` (in effect order) and render each of `blocks` with
+    the bank (the clips and every reload's buffer) in float32 and, for the
     `control`, in bfloat16 too.
     Returns ({dtype: {block: master [B, 2] float64 numpy}}, work), where
     work (for blocks in `work_range`, a (first, stop) pair) sums the voices
     that rendered and the distinct bank frames their taps read."""
     pad = reference.Sketchpad(config, [c.shape[0] for c in clips],
                               num_voices)
-    banks = {"float32": reference.reference_bank(clips, device)}
+    buffers = reference.bank_buffers(clips, events)
+    banks = {"float32": reference.reference_bank(buffers, device)}
     if control:
-        banks["bfloat16"] = reference.reference_bank(clips, device,
+        banks["bfloat16"] = reference.reference_bank(buffers, device,
                                                      lower=True)
     strip0 = tuple(float(x) for x in config["strip0"])
     want = set(blocks)
@@ -85,6 +101,8 @@ def reference_masters(config: dict, clips: list, num_voices: int,
             ev = events[i]
             if isinstance(ev, reference.Start):
                 pad.start(ev)
+            elif isinstance(ev, reference.Reload):
+                pad.reload(ev)
             else:
                 pad.release(ev)
             i += 1

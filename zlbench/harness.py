@@ -11,16 +11,18 @@ buckets "auto") into a sink of this folder's:
 - "live": an open loop standing in for the sound card's period callback:
   block n is due at t0 + n * period and is rendered by one `step_blocks(1)`
   at its due time, or at once when the loop is late, into a pacing
-  in-memory sink (each block delivered on its own). Live notes go to the
+  in-memory sink (each block delivered on its own). The traffic's timed
+  commands (live notes, the event kinds of `spec.event_kinds`) go to the
   engine under the runtime's lock right before the block they are sent
-  for, as a hardware MIDI input's would (`send_note_immediately`). The
-  pump's run-ahead of H + 2 blocks is left out: it is output latency a
-  player would hear.
+  for, as a hardware MIDI input's would, before the block's timed part
+  starts. The pump's run-ahead of H + 2 blocks is left out: it is output
+  latency a player would hear.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -102,6 +104,7 @@ class Run:
     started: np.ndarray = None   # live: when its step_blocks(1) began
     delivered: np.ndarray = None  # when its master reached the sink
     phases: dict = None        # the runtime's phase totals over the window
+    counters: dict = None      # engine.stats()'s numbers over the window
     spans: dict = None         # the engine's span summaries over the window
     trace: dict = None         # trace.read's device summary (--trace 1)
     work: dict = None          # the window's work, counted by the reference
@@ -121,6 +124,17 @@ def phase_totals(rt) -> dict:
 def phase_delta(before: dict, after: dict) -> dict:
     return {k: (s - before.get(k, (0.0, 0))[0], n - before.get(k, (0.0, 0))[1])
             for k, (s, n) in after.items()}
+
+
+def engine_counters(engine) -> dict:
+    """The numeric entries of the engine's `stats()` (counts and levels;
+    its flags, names and nested entries left out)."""
+    return {k: v for k, v in engine.stats().items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
 @dataclasses.dataclass
@@ -202,6 +216,63 @@ def build(cell, seed: int, device: str) -> Session:
     return Session(rt, sink, clips, loops, ports, n)
 
 
+@dataclasses.dataclass
+class Window:
+    """What an event kind sees of one run: the cell, the session, the seed,
+    and the window's length, period and blocks (a live window's, known
+    before it)."""
+
+    cell: object
+    session: Session
+    seed: int
+    seconds: float
+    period_s: float
+
+    @property
+    def first(self) -> int:
+        """The sink index of the window's first block."""
+        return self.session.setup_blocks
+
+    @property
+    def blocks(self) -> int:
+        return live_blocks(self.seconds, self.period_s)
+
+
+@dataclasses.dataclass
+class Plan:
+    """One event kind's window: `commands`, (window block, command) in the
+    order they are sent, a block's commands right before it; `keep`, the
+    sink indices the check keeps, decided before the window (where the
+    program decides a command's effect block, a span after its send);
+    `state`, the kind's own (what `read` found)."""
+
+    commands: list
+    keep: set
+    state: dict = dataclasses.field(default_factory=dict)
+
+
+def plan_events(w: Window) -> list:
+    """Each of the cell's event kinds with its plan: [(module, Plan)]."""
+    return [(mod, mod.plan(params, w)) for _, mod, params in w.cell.kinds]
+
+
+def sends(plans: list, w: Window) -> dict:
+    """Window block -> the calls that send its commands, kind by kind in
+    the mix's order, each kind's in its plan's order."""
+    out: dict = {}
+    for mod, plan in plans:
+        for block, cmd in plan.commands:
+            out.setdefault(block, []).append(
+                functools.partial(mod.send, cmd, w))
+    return out
+
+
+def read_events(plans: list, w: Window) -> None:
+    """After the window: each kind reads what the program recorded."""
+    for mod, plan in plans:
+        mod.read(plan, w)
+
+
 def _marker():
     """Set-up's steps on standard error, seconds since the process began."""
     def mark(what: str) -> None:
@@ -247,20 +318,15 @@ def live_blocks(seconds: float, period: float) -> int:
     return int(np.ceil(seconds / period))
 
 
-def live(s: Session, seconds: float, run: Run, notes: list,
+def live(s: Session, seconds: float, run: Run, by_block: dict,
          trace_at=None) -> list:
-    """Live cells: one step_blocks(1) a period, on the benchmark's clock.
-    `trace_at` as for `bounce`, checked before each block's wait."""
+    """Live cells: one step_blocks(1) a period, on the benchmark's clock;
+    before block i, each call of `by_block[i]` (`sends`) under the
+    runtime's lock. `trace_at` as for `bounce`, checked before each
+    block's wait."""
     rt = s.rt
-    engine = rt.engine
     period = run.period_s
     n = live_blocks(seconds, period)
-    by_block: dict = {}
-    for note in notes:
-        if note.on_block < n:
-            by_block.setdefault(note.on_block, []).append((True, note))
-        if note.off_block < n:
-            by_block.setdefault(note.off_block, []).append((False, note))
     due = np.empty(n)
     started = np.empty(n)
     woke = []
@@ -279,12 +345,8 @@ def live(s: Session, seconds: float, run: Run, notes: list,
             log.append(("waiting for the period", a, time.time_ns()))
             woke.append(time.perf_counter() - d)
         a = time.time_ns()
-        # note-offs before note-ons, each in stream order
-        for on, note in sorted(by_block.get(i, ()), key=lambda x: x[0]):
-            rt.run_locked(lambda on=on, note=note:
-                          engine.send_note_immediately(
-                              note.pitch, note.channel, on,
-                              note.velocity if on else 64))
+        for send in by_block.get(i, ()):
+            rt.run_locked(send)
         started[i] = time.perf_counter()
         rt.step_blocks(1)
         log.append(("runtime step_blocks(1)", a, time.time_ns()))
@@ -319,31 +381,11 @@ def wait_until(t: float) -> None:
         time.sleep(0)
 
 
-def events_for(cell, s: Session, notes: list, window_blocks: int) -> list:
-    """The reference's starts and stops in the order they take effect: the
-    loops at block 0, frame 0, tick 0; each live note the window sent, where
-    the program's clock plays it."""
-    cfg = cell.config
-    B = int(cfg["block_frames"])
-    spt = 60.0 / (float(cfg["bpm"]) * 96) * float(cfg["sample_rate"])
+def events_for(w: Window, plans: list) -> list:
+    """The reference's events in the order they take effect: the loops'
+    starts at block 0, frame 0, tick 0, then each event kind's."""
     events = [reference.Start(0, 0, 0, v.clip, v.channel, v.note, v.volume,
-                              True) for v in s.loops]
-    keyed = []
-    for order, note in enumerate(notes):
-        if note.off_block < window_blocks:
-            keyed.append((note.off_block, 0, order, False, note))
-        if note.on_block < window_blocks:
-            keyed.append((note.on_block, 1, order, True, note))
-    clips = len(s.clips)
-    for blk, _, _, on, note in sorted(keyed, key=lambda x: x[:3]):
-        b, frame, tick = reference.tick_of_send(s.setup_blocks + blk, B, spt)
-        clip = session.keys_clip(note.channel, clips)
-        if on:
-            events.append(reference.Start(b, frame, tick, clip, note.channel,
-                                          note.pitch, note.velocity / 127.0,
-                                          False))
-        else:
-            events.append(reference.Stop(b, frame, clip, note.channel,
-                                         note.pitch))
-    # stable: same-tick messages keep the order they were sent in
-    return sorted(events, key=lambda e: (e.block, e.frame))
+                              True) for v in w.session.loops]
+    for mod, plan in plans:
+        events.extend(mod.events(plan, w))
+    return reference.effect_order(events)

@@ -28,7 +28,17 @@ port restates them in engine/voicestate.py's docstring):
   level); a linear release that reaches 0 ends the voice;
 - gain: velocity (or the loop's volume) times the envelope times the clip
   volume; the M/S pan; every voice summed into the master (lanes 0..11),
-  then the global strip (dry, pan, mute).
+  then the global strip (dry, pan, mute);
+- reloads (`Reload`: a clip's playback swapped for a new buffer, the
+  playbackFileChanged path, lib/SamplerSynthSound.cpp:68, as the port's
+  engine/voicestate.py::rebase_clip restates it): from the reload's block
+  on, clip c reads the new buffer. Its live voices keep their positions and
+  stop frames (both are offsets into a playback file whose rate a re-render
+  keeps) and read the new length: a read past the new end is silent until
+  the voice's loop restart or stop. Later starts of the clip read the new
+  buffer; their stop frame and loop length still come from the clip's own
+  timing (its source's length), which a reload leaves alone. A reload takes
+  effect before any start or stop of its block.
 
 Everything after the positions is float64 here, so the gap to the program
 is the program's own rounding. `reference_bank` can round the bank to a
@@ -74,6 +84,24 @@ class Stop:
     note: int
 
 
+@dataclasses.dataclass
+class Reload:
+    """From block `block` on, clip `clip` reads `audio` (float32 [frames,
+    2], made by the benchmark, never by the program)."""
+
+    block: int
+    clip: int
+    audio: np.ndarray
+
+
+def effect_order(events: list) -> list:
+    """`events` in the order they take effect: by block, a block's reloads
+    first, then by frame; stable, so messages of one frame keep the order
+    they were sent in."""
+    return sorted(events, key=lambda e: (
+        e.block, not isinstance(e, Reload), getattr(e, "frame", 0)))
+
+
 def tick_of_send(block: int, block_frames: int, samples_per_tick: float):
     """A message sent right before `block` plays at the first tick of the
     musical clock at or after that block's first frame: (block, frame, tick)
@@ -109,7 +137,12 @@ class Sketchpad:
                          else F32(-200.0) if ir >= 1 else F32(0.0))
         self.root = int(config["root_note"])
         self.clip_volume = F32(config["clip_volume"])
+        # each clip's own timing (its stop frame and loop length), and the
+        # region of the reference bank it reads now (the clips, then each
+        # reload's buffer) with each region's length
         self.frames = np.asarray(clip_frames, np.int64)
+        self.region = np.arange(len(clip_frames), dtype=np.int64)
+        self.region_frames = [int(n) for n in clip_frames]
         V = num_voices
         self.V = V
         z = lambda dt: np.zeros(V, dt)  # noqa: E731
@@ -158,7 +191,7 @@ class Sketchpad:
         self.rate_f[v] = F32(ratio - int(ratio))
         self.pos_i[v], self.pos_f[v] = 0, 0.0
         self.stop[v] = int(seconds * self.sr)
-        self.length[v] = n
+        self.length[v] = self.region_frames[self.region[ev.clip]]
         self.looping[v] = ev.looping
         self.bq[v] = float(beats) == float(int(beats))
         ticks = int(beats * 96)
@@ -178,6 +211,15 @@ class Sketchpad:
              & (self.channel == ev.channel) & (self.note == ev.note))
         for v in np.flatnonzero(m):
             self.pending_release[v] = min(self.pending_release[v], ev.frame)
+
+    def reload(self, ev: Reload) -> None:
+        """Clip `ev.clip` reads `ev.audio`, the bank's next region, from
+        this block on; its live voices keep their positions and stops."""
+        self._calm = None
+        n = int(ev.audio.shape[0])
+        self.region[ev.clip] = len(self.region_frames)
+        self.region_frames.append(n)
+        self.length[self.active & (self.clip == ev.clip)] = n
 
     # -------------------------------------------------------------- a block
 
@@ -351,8 +393,8 @@ class Sketchpad:
         return pos, alpha, valid, gain
 
     def read_frames(self, p: dict) -> int:
-        """Distinct bank frames this block's taps read: the union, per clip,
-        of each voice's [first, last + 1] tap range in each of its
+        """Distinct bank frames this block's taps read: the union, per bank
+        region, of each voice's [first, last + 1] tap range in each of its
         segments."""
         B = self.B
         act = self.active
@@ -380,7 +422,7 @@ class Sketchpad:
         clip = np.concatenate(clip)
         if lo.size == 0:
             return 0
-        off = np.concatenate([[0], np.cumsum(self.frames)[:-1]])[clip]
+        off = region_offsets(self.region_frames)[self.region[clip]]
         lo, hi = lo + off, hi + off
         order = np.argsort(lo, kind="stable")
         lo, hi = lo[order], hi[order]
@@ -398,7 +440,8 @@ def render(pad: Sketchpad, p: dict, bank, offsets, strip0,
            device) -> torch.Tensor:
     """This block's master [B, 2] float64 from the reference bank (`bank`
     [frames, 2] on `device`, in the precision the comparison asks for;
-    `offsets` each clip's first row)."""
+    `offsets` each region's first row; a voice reads its clip's current
+    region)."""
     pos, alpha, valid, gain = pad.frames_of_block(p)
     act = np.flatnonzero(pad.active)
     B = pad.B
@@ -409,7 +452,8 @@ def render(pad: Sketchpad, p: dict, bank, offsets, strip0,
                                   device=dev)
     n = t(pad.length)[:, None]
     pos_t = t(pos)
-    base = torch.as_tensor(offsets, device=dev)[t(pad.clip)][:, None]
+    base = torch.as_tensor(offsets, device=dev)[
+        t(pad.region[pad.clip])][:, None]
     i0 = base + torch.minimum(torch.clamp_min(pos_t, 0), n - 1)
     i1 = base + torch.minimum(torch.clamp_min(pos_t + 1, 0), n - 1)
     a = t(alpha).double()
@@ -432,13 +476,25 @@ def render(pad: Sketchpad, p: dict, bank, offsets, strip0,
     return master * scale * dry
 
 
-def reference_bank(clips, device, lower: bool = False):
-    """The clips stacked into one [frames, 2] tensor on `device` in float32
-    as the config states (with `lower`, for the control, rounded to
-    bfloat16 and read back as float32), and each clip's first row."""
-    frames = [c.shape[0] for c in clips]
-    offsets = np.concatenate([[0], np.cumsum(frames)[:-1]]).astype(np.int64)
-    bank = torch.as_tensor(np.concatenate(clips, axis=0), device=device)
+def region_offsets(frames: list) -> np.ndarray:
+    """Each bank region's first row."""
+    return np.concatenate([[0], np.cumsum(frames)[:-1]]).astype(np.int64)
+
+
+def bank_buffers(clips: list, events: list) -> list:
+    """The reference bank's regions: the clips, then the buffer of each
+    reload in `events` (in effect order), the order `Sketchpad.reload`
+    numbers them in."""
+    return list(clips) + [e.audio for e in events if isinstance(e, Reload)]
+
+
+def reference_bank(buffers, device, lower: bool = False):
+    """The buffers (`bank_buffers`) stacked into one [frames, 2] tensor on
+    `device` in float32 as the config states (with `lower`, for the
+    control, every region alike rounded to bfloat16 and read back as
+    float32), and each region's first row."""
+    offsets = region_offsets([b.shape[0] for b in buffers])
+    bank = torch.as_tensor(np.concatenate(buffers, axis=0), device=device)
     if lower:
         bank = bank.to(torch.bfloat16).float()
     return bank, offsets

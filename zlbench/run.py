@@ -24,7 +24,7 @@ import time
 
 import torch
 
-from . import check, harness, session, spec
+from . import check, harness, spec
 from . import trace as trace_mod
 
 
@@ -43,16 +43,15 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device: str,
     engine = rt.engine
     run = harness.Run(cell.name, cfg["drive"], int(cfg["block_frames"]),
                       int(cfg["sample_rate"]), 0.0)
-    notes_cfg = cell.traffic.get("notes")
-    notes = (session.note_stream(notes_cfg, seconds, run.period_s, seed)
-             if notes_cfg else [])
-    # the live window's blocks are known before it; a bounce's are not,
-    # and it sends no notes
-    s.sink.keep = check.keep_rule(seed, s.setup_blocks, harness.events_for(
-        cell, s, notes, harness.live_blocks(seconds, run.period_s))
-        if notes else [])
+    # the traffic's timed commands, planned before the window (a bounce
+    # cell names no event kind)
+    w = harness.Window(cell, s, seed, seconds, run.period_s)
+    plans = harness.plan_events(w)
+    s.sink.keep = check.keep_rule(
+        seed, s.setup_blocks, set().union(*(p.keep for _, p in plans)))
     harness.fresh_spans(engine)
     ph0 = harness.phase_totals(rt)
+    counters0 = harness.engine_counters(engine)
     # the device's trace exists on a card only; it covers the window's
     # last TRACE_S seconds
     traced_device = traced and cuda
@@ -70,7 +69,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device: str,
             traced_from.update(ns=time.time_ns(), block=block)
         trace_at = (max(seconds - trace_mod.TRACE_S, 0.0), start_trace)
     if cfg["drive"] == "live":
-        log = harness.live(s, seconds, run, notes, trace_at)
+        log = harness.live(s, seconds, run, harness.sends(plans, w),
+                           trace_at)
     else:
         log = harness.bounce(s, seconds, run, trace_at)
     if cuda:
@@ -80,14 +80,17 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device: str,
         prof.stop_trace()
     run.setup_s = age + (run.t0 - t_age)
     run.phases = harness.phase_delta(ph0, harness.phase_totals(rt))
+    run.counters = harness.counter_delta(counters0,
+                                         harness.engine_counters(engine))
     run.spans = engine.profiler.summary()
+    harness.read_events(plans, w)
     if traced_device:
         run.trace = trace_mod.read(prof, traced_from["ns"], t1_ns, log)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
     expected = s.setup_blocks + run.blocks
     missing = expected - s.sink.count
-    events = harness.events_for(cell, s, notes, run.blocks)
+    events = harness.events_for(w, plans)
     blocks = check.sample_blocks(seed, s.setup_blocks, run.blocks, events,
                                  s.sink.kept)
     delivered = {b: s.sink.block(b) for b in blocks
@@ -98,7 +101,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device: str,
     engine.drain_speculation()
     for p in s.port_clips:
         p.destroy()
-    del s, rt, engine
+    del s, rt, engine, w
     check.release_device_memory()
     forbidden = harness.forbidden_modules()
     t_ref = time.perf_counter()

@@ -26,6 +26,7 @@ def tiny_cell(name: str, bench: dict = None, traffic: dict = None):
     traffic = copy.deepcopy(traffic or cell.traffic)
     traffic["loop_voices"] = min(int(traffic["loop_voices"]), 20)
     cell.config, cell.traffic = cfg, traffic
+    cell.kinds = spec.event_kinds(traffic, cfg)
     return cell
 
 
