@@ -18,7 +18,9 @@ The model of libzl_tpu/models/clip.py, apart from where its session
 feedback lives: the throttled progress and level state is the clip's row
 of a FeedbackTable (models/feedback.py), which the clip's properties read
 and write, so that an engine's session update publishes every clip's in
-one vectorised pass and enters Python only for a callback.
+one vectorised pass and enters Python only for a callback. The render
+worker times each render as span `clip_render` on the clip's engine's
+profiler, on its own thread ("libzl-render").
 """
 
 from __future__ import annotations
@@ -62,14 +64,24 @@ _render_thread = None
 
 
 def _render_worker() -> None:
+    import threading as _t
+
+    # named for the span record (utils/profiling.thread_label)
+    _t.current_thread().name = "libzl-render"
     while True:
         clip, gen = _render_queue.get()
         if clip is None:
             return
         if gen != clip._render_generation:
             continue  # superseded by a newer parameter change
+        engine = clip.engine
         try:
-            rendered = clip._compute_playback()
+            if engine is None:
+                rendered = clip._compute_playback()
+            else:
+                # span clip_render on the engine's profiler, on this thread
+                with engine.profiler.span("clip_render"):
+                    rendered = clip._compute_playback()
         except Exception as exc:
             # a dropped render means the stale buffer keeps playing —
             # record and report it instead of vanishing (undebuggable
@@ -86,7 +98,6 @@ def _render_worker() -> None:
         def done(clip=clip, gen=gen, rendered=rendered):
             clip._finish_playback_update(rendered, gen)
 
-        engine = clip.engine
         if engine is not None:
             # applied at the start of the next process_block (the
             # playbackFileChanged reload analog) — single-threaded there

@@ -51,12 +51,14 @@ _last = None
 # other thread is the engine's caller
 THREAD_LABELS = (("libzl-spec-sim", "spec-sim"),
                  ("libzl-spec-dispatch", "spec-dispatch"),
-                 ("libzl-pump", "pump"))
+                 ("libzl-pump", "pump"),
+                 ("libzl-render", "render"))
 
 
 def thread_label() -> str:
-    """The calling thread's label in the record: "spec-sim",
-    "spec-dispatch", "pump" (the runtime's threads, by name) or "engine"."""
+    """The calling thread's label in the record, by the thread's name:
+    "spec-sim", "spec-dispatch", "pump" (the runtime's threads), "render"
+    (the clips' render worker) or "engine"."""
     name = threading.current_thread().name
     for prefix, label in THREAD_LABELS:
         if name.startswith(prefix):

@@ -84,11 +84,13 @@ def _source_without_docstrings(path: Path) -> str:
 # copies the port reworked: the reference's module but for these
 # definitions (added, changed or gone), which keep the reference's values
 # in another form: the session feedback in one table
-# (test_session_update_bit_equal)
+# (test_session_update_bit_equal); and the clips' render worker, which
+# times each render on its clip's engine's profiler (span clip_render) and
+# names its thread for the span record
 REWORKED = {
     "models/positions.py": ["PlaybackPosition", "PositionsModel"],
     "models/clip.py": ["ClipAudioSource", "LEVEL_DECAY", "LEVEL_THROTTLE_S",
-                       "PROGRESS_THROTTLE_S", "_row_field"],
+                       "PROGRESS_THROTTLE_S", "_row_field", "_render_worker"],
     "models/audio_levels.py": ["AudioLevels"],
 }
 
